@@ -2,7 +2,7 @@
 
 The reference scales by one resampler state per stream (Readme.md:20-21);
 here S streams x C channels become S*C lanes of a single phase-indexed
-matmul per launch, so one compiled XLA/Pallas program serves the whole
+matmul per launch, so one compiled XLA program serves the whole
 batch.  This demo runs 8 streams, checkpoints the engine mid-stream,
 replays the second half on a restored copy, and checks the outputs agree
 bit-for-bit.
@@ -18,14 +18,6 @@ except ImportError:  # pragma: no cover
     import pathlib
     import sys as _sys
     _sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-
-# honor JAX_PLATFORMS=cpu even where a device plugin clobbers the env var
-# (the in-process config update is the only reliable selector)
-import os as _os
-
-if "cpu" in _os.environ.get("JAX_PLATFORMS", "").lower():
-    import jax as _jax
-    _jax.config.update("jax_platforms", "cpu")
 
 from speex_resampler_tpu import BatchedResampler
 

@@ -4,7 +4,7 @@ The reference is a dual numeric build (arch.h:39-67): the shipped WASM is
 the float build, but `-DFIXED_POINT` selects int16 samples with Q15
 integer hot loops.  Both universes exist here; the fixed one is BIT-EXACT
 vs the fixed-build reference (wrapping int32 sums are order-independent,
-so even the MXU formulation is exact by construction — zero tolerated
+so even the GEMM formulation is exact by construction — zero tolerated
 mismatches, asserted in tests/test_fixed.py).
 
 This demo resamples the same signal through both universes and shows they
@@ -21,14 +21,6 @@ except ImportError:  # pragma: no cover
     import pathlib
     import sys as _sys
     _sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-
-# honor JAX_PLATFORMS=cpu even where a device plugin clobbers the env var
-# (the in-process config update is the only reliable selector)
-import os as _os
-
-if "cpu" in _os.environ.get("JAX_PLATFORMS", "").lower():
-    import jax as _jax
-    _jax.config.update("jax_platforms", "cpu")
 
 from speex_resampler_tpu import SpeexResampler
 

@@ -18,14 +18,6 @@ except ImportError:  # pragma: no cover
     import sys as _sys
     _sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# honor JAX_PLATFORMS=cpu even where a device plugin clobbers the env var
-# (the in-process config update is the only reliable selector)
-import os as _os
-
-if "cpu" in _os.environ.get("JAX_PLATFORMS", "").lower():
-    import jax as _jax
-    _jax.config.update("jax_platforms", "cpu")
-
 import jax
 import jax.numpy as jnp
 
@@ -36,8 +28,7 @@ B = 8  # lanes (streams x channels)
 
 def main() -> None:
     rs = make_stream_fn(44100, 48000, quality=7, target_in_frames=1024)
-    print(f"quantum: {rs.in_frames} in -> {rs.out_frames} out frames, "
-          f"scheme={rs.scheme}")
+    print(f"quantum: {rs.in_frames} in -> {rs.out_frames} out frames")
 
     @jax.jit
     def pipeline(hist, pcm):

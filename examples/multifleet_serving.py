@@ -19,14 +19,6 @@ except ImportError:  # pragma: no cover
     import sys as _sys
     _sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# honor JAX_PLATFORMS=cpu even where a device plugin clobbers the env var
-# (the in-process config update is the only reliable selector)
-import os as _os
-
-if "cpu" in _os.environ.get("JAX_PLATFORMS", "").lower():
-    import jax as _jax
-    _jax.config.update("jax_platforms", "cpu")
-
 from speex_resampler_tpu.runtime import MultiFleet
 
 CHANNELS = 2

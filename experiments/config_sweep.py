@@ -1,4 +1,5 @@
-"""On-chip launch-rate sweep across the BASELINE config classes."""
+"""Device launch-rate sweep across the main config classes (dense and
+gather geometries), timed as the slope between two scan lengths."""
 import functools, time
 import numpy as np, jax, jax.numpy as jnp
 from jax import lax
@@ -17,8 +18,8 @@ CONFIGS = [
 for name, ir, orr, q in CONFIGS:
     g = math.gcd(ir, orr)
     spec = fd.design_filter(ir // g, orr // g, q)
-    bspec = _launch_geometry(spec, 9408, use_pallas=True)
-    bstep = make_batched_step(spec, bspec, use_pallas=True)
+    bspec = _launch_geometry(spec, 9408)
+    bstep = make_batched_step(spec, bspec)
     step, w = bstep.fn, bstep.w
     rng = np.random.default_rng(0)
     x_np = np.zeros((bstep.chunk_rows, B), dtype=np.int16)

@@ -366,8 +366,7 @@ def _iter_batch(rng, tmp, fixed):
     frames = rng.integers(-32768, 32768, size=(2, n, ch)).astype(np.int16)
     cfg = dict(mode="batch", fixed=fixed, ir=ir, orr=orr, q=q, ch=ch, n=n)
     try:
-        eng = BatchedResampler(2, ch, ir, orr, q, use_pallas=False,
-                               fixed_point=fixed)
+        eng = BatchedResampler(2, ch, ir, orr, q, fixed_point=fixed)
     except ResamplerError as e:
         return cfg, True, f"engine refused cleanly: {e}"
     a = np.concatenate([eng.process(frames), eng.flush()], axis=1)

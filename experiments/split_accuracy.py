@@ -2,7 +2,8 @@
 
 x is int16, so x = x_hi + x_lo with BOTH parts exactly representable in
 bf16 (top 8 / bottom 8 bits).  w is f32 and needs a 2- or 3-term bf16
-split.  Schemes (bf16 products, f32 accumulation, like the MXU):
+split.  Schemes (bf16 products, f32 accumulation, like a bf16 tensor-core
+pass; the candidate behind lax.DotAlgorithmPreset.BF16_BF16_F32_X3):
   split4: (w_hi + w_lo) x (x_hi + x_lo)                    4 passes
   split5: split6 minus the w_lo*x_lo term                  5 passes
   split6: (w_hi + w_mid + w_lo) x (x_hi + x_lo)            6 passes
@@ -10,7 +11,7 @@ Reference: float64 dot; production: f32 (HIGHEST ~ near-f32-exact).
 Reports max err and WORD2INT mismatch rate vs the f64 ground truth.
 """
 import numpy as np
-import ml_dtypes
+import jax.numpy as jnp
 
 rng = np.random.default_rng(0)
 
@@ -18,13 +19,12 @@ from speex_resampler_tpu.ops import filter_design as fd
 from speex_resampler_tpu.ops import phase as ph
 
 spec = fd.design_filter(147, 160, 7)
-ptw = ph.build_phase_tiled_weights(spec.phase_table, 147, 160, 0)
-P, K, R, S = ptw.P, ptw.K, ptw.R, ptw.S
-W = ptw.w  # [P, K, R] f32
-print("P,K,R,S =", P, K, R, S, " L1(w row) ~", np.abs(W[0]).sum(0).mean())
+W = ph.build_padded_weights(spec.phase_table, 147, 160, 0)[None]  # [1, K, R]
+P, K, R = W.shape
+print("K,R =", K, R, " L1(w row) ~", np.abs(W[0]).sum(0).mean())
 
 def bf16(a):
-    return a.astype(ml_dtypes.bfloat16).astype(np.float32)
+    return a.astype(jnp.bfloat16).astype(np.float32)
 
 def word2int(x):
     y = np.floor(0.5 + x)

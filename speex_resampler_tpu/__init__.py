@@ -1,6 +1,6 @@
-"""speex_resampler_tpu — TPU-native arbitrary-ratio audio resampler.
+"""speex_resampler_tpu — batched arbitrary-ratio audio resampler on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 geekuillaume/node-speex-resampler (the Speex/speexdsp resampler behind a
 WASM boundary): interleaved s16 PCM in, Kaiser-windowed-sinc polyphase FIR
 resampling at an arbitrary rational ratio, quality presets 0-10, streaming
@@ -8,7 +8,7 @@ state carried across chunks — matching the reference within 1 LSB.
 
 Instead of translating the C state machine, the hot path exploits the
 closed form of the phase recurrence to turn each launch into a single
-phase-indexed strided matmul on the MXU, with streams x channels batched
+phase-indexed strided matmul on the device, with streams x channels batched
 across the device (see ops/fir_matmul.py and parallel/).
 """
 

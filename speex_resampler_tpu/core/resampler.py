@@ -1,4 +1,4 @@
-"""Stateful Speex-compatible resampler core, TPU-first.
+"""Stateful Speex-compatible resampler core, device-first.
 
 Replaces the reference's C state machine (SpeexResamplerState_,
 resample.c:116-146, and the process pipeline :878-1082) with:
@@ -39,12 +39,11 @@ __all__ = ["ResamplerCore"]
 
 # ``engine="auto"`` crossover: float-universe cores at or below this many
 # channels serve through the native host hot loops (bit-identical to the
-# reference and faster than the reference C single-stream — measured
-# 1.15-2x the -O3 oracle, BENCH ``single_stream``); above it the batched
-# MXU path wins.  Interactive per-stream use (the reference's primary
-# pattern, src/index.ts:50-116) therefore never pays per-launch device
-# dispatch.  Batched serving at scale goes through FleetResampler, which
-# is device-native regardless of this knob.
+# reference); above it the batched device path wins.  Interactive
+# per-stream use (the reference's primary pattern, src/index.ts:50-116)
+# therefore never pays per-launch device dispatch.  Batched serving at
+# scale goes through FleetResampler, which is device-native regardless of
+# this knob.
 HOST_AUTO_MAX_CHANNELS = 8
 
 
@@ -99,11 +98,11 @@ class ResamplerCore:
 
         ``engine`` places the FLOAT hot loops: ``"host"`` = the native
         order-faithful loops (same outputs as ``exact=True``),
-        ``"device"`` = the batched MXU path (<=1 LSB), ``"auto"`` (default)
+        ``"device"`` = the batched device path (<=1 LSB), ``"auto"`` (default)
         = host at or below HOST_AUTO_MAX_CHANNELS channels, device above —
         so interactive single-stream use never pays per-chunk device
         dispatch (it would lose to the reference C there) while wide cores
-        keep MXU throughput.  A placement knob, not a state universe:
+        keep device throughput.  A placement knob, not a state universe:
         checkpoints restore across engines (values may differ <=1 LSB
         after a host<->device move, like any reassociation).  The fixed
         universe ignores it (core fixed loops are host-native already).

@@ -69,7 +69,6 @@ class StreamFn:
     input_latency: int       # filter delay, input samples (filt_len/2)
     output_latency: int      # filter delay, output samples
     fixed_point: bool
-    scheme: str              # resolved matmul precision scheme
 
     def init(self, batch: int) -> jax.Array:
         """Fresh-stream history (zeros) for ``batch`` lanes."""
@@ -79,10 +78,7 @@ class StreamFn:
 def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
                    target_in_frames: int = 4096,
                    fixed_point: bool = False,
-                   use_pallas: bool | None = None,
-                   pallas_interpret: bool = False,
-                   mesh: "jax.sharding.Mesh | None" = None,
-                   scheme: str = "auto") -> StreamFn:
+                   mesh: "jax.sharding.Mesh | None" = None) -> StreamFn:
     """Build a pure step for one config.
 
     ``target_in_frames`` sizes the launch quantum (rounded to the
@@ -93,12 +89,8 @@ def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
     g = math.gcd(in_rate, out_rate)
     spec = fd.design_filter(in_rate // g, out_rate // g, quality,
                             fixed_point=fixed_point)
-    bspec = _launch_geometry(spec, target_in_frames, use_pallas=bool(
-        use_pallas if use_pallas is not None
-        else jax.default_backend() == "tpu"))
-    bstep = make_batched_step(spec, bspec, use_pallas=use_pallas,
-                              pallas_interpret=pallas_interpret,
-                              mesh=mesh, scheme=scheme)
+    bspec = _launch_geometry(spec, target_in_frames)
+    bstep = make_batched_step(spec, bspec, mesh=mesh)
     n_in = bspec.in_per_launch
     pad_rows = bstep.chunk_rows - n_in
     fn, w = bstep.fn, bstep.w
@@ -118,7 +110,7 @@ def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
         input_latency=spec.filt_len // 2,
         output_latency=((spec.filt_len // 2) * spec.den
                         + (spec.num >> 1)) // spec.num,
-        fixed_point=fixed_point, scheme=bstep.scheme)
+        fixed_point=fixed_point)
 
 
 def resample_array(x: np.ndarray, in_rate: int, out_rate: int,

@@ -26,7 +26,7 @@ class Preset:
     ``hard_latency`` makes target_chunk_ms a HARD cap on the engine's
     launch quantum (BatchedResampler/FleetResampler max_latency_ms): the
     geometry falls back to latency-optimal kernels instead of rounding the
-    quantum up for MXU efficiency.  The voip preset uses it to guarantee
+    quantum up for GEMM efficiency.  The voip preset uses it to guarantee
     its 20 ms availability budget at fleet scale."""
     name: str
     quality: int

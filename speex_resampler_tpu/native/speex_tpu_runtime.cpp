@@ -1,4 +1,4 @@
-// speex_tpu_runtime — native host runtime for the TPU resampler fleet.
+// speex_tpu_runtime — native host runtime for the batched resampler fleet.
 //
 // Role: the host-side counterpart of the reference's C runtime plumbing.
 // Where the reference stages one stream's bytes across the wasm heap
@@ -486,10 +486,8 @@ void srt_unpack_all(void* h, const int16_t* y, long n_out, int16_t* dst) {
 // the 256-stream flagship) — a cache-hostile transpose the reference never
 // pays because its wasm heap serves ONE stream (src/index.ts:92,111-115).
 // The lane-major pair below keeps every host access CONTIGUOUS per stream
-// (the transpose rides the TPU inside the jitted step, where it is
-// HBM-bandwidth trivial): measured 23x on the gather and 3.3x on the
-// scatter at S=256, q=9408 on the serving host — both within ~30% of a
-// bare memcpy of the same bytes.
+// (the transpose rides the device inside the jitted step, where it is
+// HBM-bandwidth trivial).
 
 // Gather one launch quantum into the LANE-MAJOR slab out[B][stride]
 // (stride >= n_in; columns [n_in, stride) are never touched, so a

@@ -1,4 +1,4 @@
-"""Host-side filter designer for the TPU-native Speex-compatible resampler.
+"""Host-side filter designer for the batched Speex-compatible resampler.
 
 Re-derives the reference's Kaiser-windowed-sinc filter tables with the exact
 mixed float32/float64 arithmetic of the C core so that tables are
@@ -48,16 +48,13 @@ F32 = np.float32
 F64 = np.float64
 
 # Concurrency contract: design_filter is lru_cache'd, so FilterSpec
-# instances (and their lazily-built tables / the phase-tiled weight cache
-# parallel/batch.py attaches) are SHARED across engines.  Server threads
-# construct engines for the same config concurrently (MultiFleet buckets
-# are built on demand from request threads), so every mutation of a shared
-# spec — the lazy phase_table / interp tensors here, and batch.py's
-# spec-attached ``_ptw_cache`` — serializes on a PER-SPEC re-entrant lock
-# (re-entrant because the tiled-weight builder reads the lazy tables while
-# holding it; per-spec so cold builds of UNRELATED configs — a
-# heterogeneous MultiFleet's buckets — proceed in parallel instead of
-# queueing behind one near-256 MB streamed-table build).  The global lock
+# instances (and their lazily-built tables) are SHARED across engines.
+# Server threads construct engines for the same config concurrently
+# (MultiFleet buckets are built on demand from request threads), so every
+# mutation of a shared spec — the lazy phase_table / interp tensors here —
+# serializes on a PER-SPEC re-entrant lock (per-spec so cold builds of
+# UNRELATED configs — a heterogeneous MultiFleet's buckets — proceed in
+# parallel instead of queueing behind one large table build).  The global lock
 # below only guards attaching the per-spec lock itself.  Tables are
 # immutable once built, so lock-free READS of an already-populated
 # attribute stay safe; only build-and-attach races are possible, and the
@@ -380,7 +377,7 @@ def effective_phase_table(sinc_table: np.ndarray, filt_len: int,
     which we precompute here (f64 combine of the f32 table and f32 cubic
     coefficients, rounded once to f32).  This turns the interpolated path
     into the same phase-indexed dot product as the direct path, which is the
-    shape the TPU matmul kernel wants.  Deviation from the reference is only
+    shape the device matmul wants.  Deviation from the reference is only
     float reassociation, bounded well under 1 LSB of the s16 output.
     """
     return effective_phase_rows(sinc_table, filt_len, oversample, den,
@@ -417,8 +414,8 @@ def effective_phase_rows(sinc_table: np.ndarray, filt_len: int,
 
 # Full collapsed tables are materialized (and cached on the spec) only up
 # to this many entries; beyond it, row accessors compute just the rows a
-# launch needs.  The cutover matches where the engines stop using dense/
-# tiled weights anyway: huge-den configs serve through gather kernels whose
+# launch needs.  The cutover matches where the engines stop using dense
+# weights anyway: huge-den configs serve through gather kernels whose
 # weights are per-output rows, never the full [den, filt_len] table.
 _LAZY_TABLE_ENTRIES = 1 << 22
 

@@ -1,6 +1,6 @@
 """Accumulation-order-faithful direct-path resampler (host, NumPy).
 
-The batched TPU kernels regroup the f32 accumulation (MXU tree order), so
+The batched device kernels regroup the f32 accumulation (GEMM tree order), so
 their outputs can differ from the reference by rounding ties within 1 LSB.
 This module reproduces the reference's DIRECT-path hot loops with the
 EXACT C arithmetic order, yielding bit-identical output — a strictly

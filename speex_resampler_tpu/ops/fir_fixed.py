@@ -9,8 +9,8 @@ phase/index math of ops/phase.py.
 A property the float universe does not have: the Q15 accumulator is int32
 with two's-complement wraparound, and wrapping addition is associative and
 commutative mod 2^32 — so ANY summation order (serial C loop, NumPy
-reduction, MXU tree) produces bit-identical results.  The fixed universe is
-therefore exactly reproducible on the MXU by construction, with no
+reduction, GEMM tree) produces bit-identical results.  The fixed universe is
+therefore exactly reproducible on the device by construction, with no
 accumulation-order caveats at all (contrast ops/fir_exact.py).
 
 The device formulation lives in ops/fir_matmul.resample_conv_fixed; this

@@ -1,15 +1,16 @@
 """Device hot path: the resampler as one phase-indexed matmul per launch.
 
-TPU-first reformulation of the reference hot loops (resample.c:331-559).
+Batched reformulation of the reference hot loops (resample.c:331-559).
 Using the closed-form recurrence (ops/phase.py), outputs are grouped into
 super-blocks of R = G*den outputs consuming exactly G*num inputs each, so a
 launch is a single strided convolution
 
     Y[s, b, r] = sum_l X[s, b*G*num + l] * W[l, r]      (L = filt_len + G*num)
 
-which XLA lowers onto the MXU.  The group factor G widens the matmul's
-N-dimension for small ``den`` (e.g. integer upsampling, den=2) so MXU lanes
-stay filled; W is the host-built padded weight matrix
+which XLA lowers to a GEMM.  The group factor G widens the matmul's
+N-dimension for small ``den`` (e.g. integer upsampling, den=2) so each
+block row carries enough output columns; W is the host-built padded weight
+matrix
 (ops/phase.build_padded_weights with R sub-phases).
 
 A gather-based fallback handles pathological ratios whose padded weight
@@ -38,7 +39,7 @@ __all__ = ["choose_group", "resample_conv", "resample_conv_tm",
 # Above this padded-weight size the gather fallback is used instead.
 MAX_PADDED_WEIGHT_BYTES = 32 * 1024 * 1024
 
-_LANE_TARGET = 128  # MXU lane width worth of output columns per block row
+_LANE_TARGET = 128  # GEMM width: output columns per block row to aim for
 
 
 def choose_group(num: int, den: int, filt_len: int) -> int:
@@ -59,7 +60,7 @@ def choose_group(num: int, den: int, filt_len: int) -> int:
 @partial(jax.jit, static_argnames=("stride", "accum_dtype", "raw"))
 def resample_conv(x, w, *, stride: int, accum_dtype=jnp.float32,
                   raw: bool = False):
-    """One resample launch: strided patches × padded phase weights → MXU.
+    """One resample launch: strided patches × padded phase weights (GEMM).
 
     x: int16[batch, T]   input samples (history + chunk + zero pad), where
                          T = n_blocks * stride + L, T % stride == 0
@@ -71,8 +72,7 @@ def resample_conv(x, w, *, stride: int, accum_dtype=jnp.float32,
     concat of A = L//stride shifted views of x.reshape(-1, stride) — pure
     reshape/slice/concat that XLA fuses into the matmul's operand reads.
     (A strided lax.conv spelling of the same math compiles to a very slow
-    kernel on CPU and obscures the MXU mapping on TPU; this form is a plain
-    GEMM everywhere.)
+    kernel on CPU; this form is a plain GEMM everywhere.)
     """
     L, R = w.shape
     batch, T = x.shape
@@ -94,7 +94,7 @@ def resample_conv(x, w, *, stride: int, accum_dtype=jnp.float32,
 @partial(jax.jit, static_argnames=("stride", "accum_dtype"))
 def resample_conv_tm(x, w, *, stride: int, accum_dtype=jnp.float32):
     """Time-major twin of :func:`resample_conv` (same math, x transposed);
-    the layout the batched engine and the Pallas kernel use.
+    the layout the batched engine uses.
 
     x: int16[T, B], T % stride == 0; w: f32[L, R], L % stride == 0.
     returns int16[n_blocks*R, B], n_blocks = T//stride - L//stride.
@@ -152,10 +152,9 @@ def resample_gather(x, taps, starts, *, tile: int = 2048,
 #
 # The fixed hot loops accumulate int16*int16 products in a wrapping int32
 # (resample.c:331-384/:438-496, FIXED_POINT branches).  Wrapping addition is
-# associative mod 2^32, so ANY regrouping — including the MXU's — is
+# associative mod 2^32, so ANY regrouping — including a GEMM's — is
 # bit-exact.  An int16 x int16 -> int32 dot decomposes EXACTLY into four
-# int8 MXU passes plus one host-constant bias (the same formulation the
-# Pallas kernels use, ops/pallas_fir.fixed_weight_planes_tiled):
+# int8 x int8 -> int32 dots plus one host-constant bias:
 #
 #     w = 256*wh + wl0 EXACTLY (realizable Q15 taps satisfy
 #         |w| <= 32768*cutoff < 32639, so the balanced split
@@ -166,19 +165,16 @@ def resample_gather(x, taps, starts, *, tile: int = 2048,
 #               + 128*sum_L(w)                                   (mod 2^32)
 #
 # 128*sum_L(w) is a host constant per output column.  Per-plane int8 dot
-# sums are bounded by 16384*L < 2^31 for every realizable L, so the MXU
-# int32 accumulators never wrap mid-plane; all combining is int32 (wraps
-# exactly like the C accumulator).
-#
-# This makes the fixed universe the cheapest compute path of all: 4 int8
-# passes ~ 2 bf16-equivalents, vs 5 (split5) / 6 (HIGHEST) for the float
-# build — and exact by construction, with no certificate needed.
+# sums are bounded by 16384*L < 2^31 for every realizable L, so the int32
+# accumulators never wrap mid-plane; all combining is int32 (wraps exactly
+# like the C accumulator).  The dots must stay integer: a lowering through
+# float32 would round sums past 2^24.
 # ---------------------------------------------------------------------------
 
 
 def fixed_weight_planes(w16: "np.ndarray"):
     """Host-side EXACT balanced plane decomposition of an int16 weight
-    matrix (same split as ops/pallas_fir.fixed_weight_planes_tiled).
+    matrix (fixed_math.balanced_q15_split).
 
     w16: int16 [L, C] (C = R direct columns, or 4*R interp accumulator
     columns).  Returns (wh int8[L,C], wl0 int8[L,C], bias int32[C]) with
@@ -280,10 +276,10 @@ def resample_gather_fixed(x, taps, starts, coef=None, *, tile: int = 2048):
     coef:   int32[n_pad, 4] Q15 cubic coefficients (interpolated path)
     returns int16[batch, n_pad]
 
-    All accumulation is wrapping int32 via explicit VPU multiply+sum (no
-    integer dot_general lowering in the path), so the result is bit-exact
-    vs the C accumulator in ANY order — exactness by construction, like
-    resample_conv_tm_fixed.  Rare serving path; VPU-bound is acceptable.
+    All accumulation is wrapping int32 via explicit elementwise multiply +
+    sum (no integer dot_general lowering in the path), so the result is
+    bit-exact vs the C accumulator in ANY order — exactness by
+    construction, like resample_conv_tm_fixed.  Rare serving path.
     """
     from .fixed_math import sat32pshr15_jax
     n_out, N = taps.shape[0], taps.shape[-1]

@@ -42,9 +42,8 @@ I32 = np.int32
 
 def balanced_q15_split(w16, tap_axis: int):
     """EXACT balanced base-256 split of int16 Q15 taps — the ONE
-    definition behind the fixed universe's int8-plane kernels (dense XLA
-    twin AND both Pallas layouts; see fir_matmul.fixed_weight_planes,
-    pallas_fir.fixed_weight_planes_tiled).
+    definition behind the fixed universe's int8-plane GEMM (see
+    fir_matmul.fixed_weight_planes).
 
     Realizable Q15 taps satisfy |w| <= 32768*cutoff < 32639 (cutoff <=
     .975, resample.c:226-238), so w = 256*wh + wl0 with wh, wl0 in
@@ -175,9 +174,8 @@ def interp_mix_fixed(accum, interp) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # jnp twins (device epilogues).  One canonical implementation shared by the
-# Pallas kernels (v3/v4, row-grouped accumulators) and the XLA dense path
-# (trailing-axis accumulators) so the Q15 epilogue algebra cannot
-# desynchronize between kernels that are asserted bit-identical.
+# dense and gather device paths so the Q15 epilogue algebra cannot
+# desynchronize between formulations that are asserted bit-identical.
 # ---------------------------------------------------------------------------
 
 
@@ -196,17 +194,3 @@ def mult16_32_q15_jax(a, b):
     import jax.numpy as jnp
     return a * (b >> 15) + ((a * (b & jnp.int32(0x7FFF))) >> 15)
 
-
-def fixed_interp_mix_rows_jax(acc, coef_m):
-    """Fixed interpolate epilogue for row-grouped kernel accumulators.
-
-    acc: int32 [4*R, lanes] (accumulator-major row groups);
-    coef_m: int32 [4, R] Q15 cubic coefficients for this block phase.
-    Returns int16 [R, lanes] per resample.c:474-479 (fixed branch)."""
-    import jax.numpy as jnp
-    R = acc.shape[0] // 4
-    s = jnp.zeros((R, acc.shape[1]), jnp.int32)
-    for c in range(4):
-        s = s + mult16_32_q15_jax(coef_m[c][:, None],
-                                  acc[c * R:(c + 1) * R] >> 1)
-    return sat32pshr15_jax(s)

@@ -8,7 +8,7 @@ initial state (ls0, f0), f0 in [0, den)):
     window_start(k)  = ls0 + (f0 + k*num) // den
     phase(k)         = (f0 + k*num) %  den
 Every output sample is therefore an independent dot product — the entire
-sequential state machine disappears, which is what makes the TPU
+sequential state machine disappears, which is what makes the device
 formulation (one phase-indexed matmul per launch) possible.
 
 All functions here are exact integer host math (Python ints / NumPy int64);
@@ -32,8 +32,6 @@ __all__ = [
     "process_accounting",
     "block_constants",
     "build_padded_weights",
-    "build_phase_tiled_weights",
-    "PhaseTiledWeights",
 ]
 
 
@@ -203,92 +201,6 @@ def block_constants(num: int, den: int, f0: int,
     )
 
 
-@dataclasses.dataclass(frozen=True)
-class PhaseTiledWeights:
-    """Weights for the MXU-aligned phase-tiled kernel (pallas_fir v2).
-
-    Outputs are tiled in blocks of exactly R = 128 (one full MXU pass on the
-    output axis).  Block k's window starts are NOT periodic in k unless
-    num ≡ 0 (mod den), so weights cycle with period ``P`` blocks: block k
-    uses ``w[k % P]`` and reads input rows
-    ``(k // P) * S + offsets[k % P]  ..  + K``.
-    Every offset (and S·(k//P)) is a multiple of ``align`` (16 = the int16
-    sublane tile), so the kernel's dynamic sublane slices stay tile-aligned
-    — the sub-align remainder of each block's true start is folded into the
-    weight matrix as leading zero rows.
-
-    w:       f32[P, K, R]  (row l, col r) = taps for block-local output r
-    offsets: int32[P]      8-aligned input-row offset per block phase
-    S:       input rows consumed per P consecutive blocks (8-aligned)
-    f_end:   samp_frac_num advance per P blocks is zero by construction —
-             P·R outputs always consume exactly S inputs.
-    """
-    w: np.ndarray
-    offsets: np.ndarray
-    S: int
-    R: int
-
-    @property
-    def P(self) -> int:
-        return self.w.shape[0]
-
-    @property
-    def K(self) -> int:
-        return self.w.shape[1]
-
-
-def build_phase_tiled_weights(phase_table: np.ndarray, num: int, den: int,
-                              f0: int, R: int = 128,
-                              origin_shift: int = 0) -> PhaseTiledWeights:
-    """Build the v2/v3 kernels' cyclic weight set.
-
-    Let t(j) = f0 + j*num.  Output j's window starts at row t(j)//den with
-    taps H[t(j) % den].  For block k (outputs k*R .. k*R+R-1):
-        base(k)   = t(k*R) // den
-    Phases repeat when k*R*num ≡ 0 (mod den): P0 = den / gcd(R*num, den).
-    base advances by S0 = P0*R*num/den per P0 blocks; to keep all slices
-    align-multiple, P = P0 * (align / gcd(S0, align)) and S = P*R*num/den,
-    and each block-phase's base is rounded down to a multiple of align with
-    the remainder folded into leading zero rows of its weight matrix.
-
-    ``origin_shift`` prepends that many virtual rows before the original
-    sample axis (window starts shift by +origin_shift): the concat-free v3
-    kernel uses it to pad the history prefix to an aligned height
-    (filt_len-1 rounded up to 16) so the history/chunk boundary lands on a
-    16-multiple.
-    """
-    align = 16  # int16 sublane tile height on TPU
-    filt_len = phase_table.shape[1]
-    g = math.gcd(R * num, den)
-    P0 = den // g
-    S0 = P0 * R * num // den
-    factor = align // math.gcd(S0, align)
-    P = P0 * factor
-    S = P * R * num // den
-    assert S % align == 0 and (f0 + P * R * num) % den == f0 % den
-
-    offsets = np.empty(P, dtype=np.int32)
-    spans = np.empty(P, dtype=np.int64)
-    for k in range(P):
-        t0 = f0 + k * R * num
-        base = t0 // den + origin_shift
-        aligned = (base // align) * align
-        offsets[k] = aligned
-        spans[k] = (t0 + (R - 1) * num) // den + origin_shift - aligned
-    K = int(spans.max()) + filt_len
-    K = -(-K // 8) * 8
-
-    w = np.zeros((P, K, R), dtype=phase_table.dtype)
-    rows = np.arange(filt_len)
-    for k in range(P):
-        t = f0 + (k * R + np.arange(R, dtype=np.int64)) * num
-        p = (t % den).astype(np.int64)
-        o = (t // den) + origin_shift - offsets[k]  # incl. sub-align shift
-        w[k][o[None, :] + rows[:, None], np.arange(R)[None, :]] = \
-            phase_table[p].T
-    return PhaseTiledWeights(w=w, offsets=offsets, S=int(S), R=R)
-
-
 def build_padded_weights(phase_table: np.ndarray, num: int, den: int,
                          f0: int, group: int = 1) -> np.ndarray:
     """Scatter per-phase taps into the padded matmul weight matrix.
@@ -298,7 +210,7 @@ def build_padded_weights(phase_table: np.ndarray, num: int, den: int,
     else 0, with L = filt_len + group*num rows.  A launch is then the single
     matmul / strided conv
         Y[B, R] = P[B, L] @ W[L, R],   P[b] = X[ls0 + b*stride : +L].
-    ``group`` widens the matmul for small den so MXU lanes stay filled.
+    ``group`` widens the matmul's output axis for small den.
     W depends only on (phase_table, num, den, f0, group); callers cache it
     per f0 (steady-state serving feeds multiples of ``num`` inputs per
     launch, so f0 — and therefore W — never changes).

@@ -1,25 +1,24 @@
-"""Batched multi-stream serving engine — the flagship TPU hot path.
+"""Batched multi-stream serving engine — the device hot path.
 
 The reference processes one stream per ``SpeexResamplerState`` with a serial
 per-channel loop (resample.c:1061-1082); concurrency is left to the caller.
 Here, S concurrent streams × C channels become one batch axis of B = S*C
-independent lanes resampled in a single device launch (BASELINE.json:
-"1024 concurrent stereo streams resampled in one Pallas launch").
+independent lanes resampled in a single device launch (the flagship
+deployment: 1024 concurrent stereo streams, 2048 lanes, per launch).
 
 Steady-state design: every launch consumes a fixed quantum of input frames
 per lane that is a multiple of ``num``.  Because ``den`` outputs always
 consume exactly ``num`` inputs, the fractional phase ``samp_frac_num`` and
 the relative window origin return to their initial values after every
 launch — so the compiled step function has fully static shapes and constant
-weights, and one XLA/Pallas program serves the engine forever (time-major):
+weights, and one XLA program serves the engine forever (time-major):
 
     step: (hist i16[H, B], x i16[chunk_rows, B]) -> (hist', y i16[n_out, B])
 
 (see BatchedStep for the buffer contract).  The only host↔device traffic is
 the s16 chunk in and the s16 result out (4 bytes/sample total — the same
 two copies the reference makes across the wasm heap,
-src/index.ts:92,111-115); the concat-free v3 kernel reads history and chunk
-as separate refs, so no extra on-device copy of the chunk exists either.
+src/index.ts:92,111-115).
 
 An internal staging buffer accumulates arbitrary caller chunk sizes up to
 the launch quantum.  Output samples are identical to per-chunk processing
@@ -28,7 +27,7 @@ availability latency changes, bounded by one launch quantum.
 
 Multi-chip scaling: streams are embarrassingly parallel, so the engine
 optionally shards the lane axis across a ``jax.sharding.Mesh`` — data
-parallelism over ICI with zero collectives in the math (SURVEY.md §5).
+parallelism with zero collectives in the math (SURVEY.md §5).
 """
 
 from __future__ import annotations
@@ -52,52 +51,25 @@ from ..utils.errors import ResamplerError, ResamplerErrorCode
 __all__ = ["BatchedResampler", "make_batched_step", "BatchSpec"]
 
 
-# Phase-tiled weights live whole in VMEM (ops/pallas_fir._kernel_v3);
-# above this size the streamed-weight kernel (v4) keeps them in HBM, up to
-# a sanity cap beyond which the dense kernel takes over.
-_MAX_TILED_WEIGHT_BYTES = 4 * 1024 * 1024
-_MAX_STREAMED_WEIGHT_BYTES = 256 * 1024 * 1024
-
-# int8 scheme gates (worst-case certificate, s16 LSB): "auto" picks int8
-# below the first; an explicit scheme="int8" is refused above the second
-# (the <=1 LSB max-error contract itself would be at risk near 0.5).
-_INT8_CERT_GATE = 0.20
-_INT8_CERT_MAX = 0.35
-
-# fixed-universe tiled planes (2 int8 planes per int16 weight column; the
-# interpolated path carries 4 accumulator columns per output) may use more
-# VMEM than the float cap — the kernel's lane tile auto-shrinks to fit
-_MAX_FIXED_TILED_WEIGHT_BYTES = 6 * 1024 * 1024
-
-
 @dataclasses.dataclass(frozen=True)
 class BatchSpec:
     """Static launch geometry for one (ratio, quality) config.
 
-    kernel == "dense": v1 geometry — super-blocks of R = group*den outputs,
-    one dense GEMM each (ops/fir_matmul.py layout).
-    kernel == "tiled": v3 geometry — blocks of R = 128 outputs with cyclic
-    phase weights resident in VMEM (resample_conv_tm_pallas_v3); n_blocks
-    is a multiple of P and n_blocks/P "periods" consume S inputs each.
-    kernel == "streamed": same block geometry, but the weight cycle is too
-    large for VMEM (P = den for coprime ratios) and streams from HBM with
-    manual double-buffered DMA (resample_conv_tm_pallas_v4).
+    kernel == "dense": super-blocks of R = group*den outputs consuming
+    group*num inputs each, one GEMM per launch (ops/fir_matmul.py layout).
     kernel == "gather": pathological huge-den ratios (e.g. 44100->44101)
-    whose padded/cyclic weight matrices would be GBs; per-output tap rows
-    are gathered host-side once and the launch is a per-tile dot
-    (fm.resample_gather; the fixed universe runs the exact host loops).
+    whose padded weight matrix would be GBs; per-output tap rows are
+    gathered host-side once and the launch is a per-tile dot
+    (fm.resample_gather / fm.resample_gather_fixed).
     """
     num: int
     den: int
     quality: int
     filt_len: int
-    group: int          # dense: super-block factor G
-    n_blocks: int       # dense: super-blocks; tiled: R-blocks (mult of P)
+    group: int          # super-block factor G
+    n_blocks: int       # super-blocks per launch
     f0: int             # fractional phase at every launch start
     kernel: str = "dense"
-    S: int = 0          # tiled: inputs per P blocks
-    P: int = 0          # tiled: weight cycle length
-    R: int = 0          # tiled: outputs per block (128)
 
     @property
     def stride(self) -> int:
@@ -106,102 +78,31 @@ class BatchSpec:
     @property
     def in_per_launch(self) -> int:
         """Input frames consumed per lane per launch."""
-        if self.kernel in ("tiled", "streamed"):
-            return (self.n_blocks // self.P) * self.S
         return self.n_blocks * self.stride
 
     @property
     def out_per_launch(self) -> int:
         """Output frames produced per lane per launch."""
-        if self.kernel in ("tiled", "streamed"):
-            return self.n_blocks * self.R
         return self.n_blocks * self.group * self.den
 
 
-def _tiled_weight_bytes_estimate(spec: fd.FilterSpec, R: int = 128) -> int:
-    """Size of the phase-tiled weight set WITHOUT building it (the probe
-    itself would allocate GBs for pathological coprime ratios)."""
-    g = math.gcd(R * spec.num, spec.den)
-    P0 = spec.den // g
-    S0 = P0 * R * spec.num // spec.den
-    factor = 16 // math.gcd(max(S0, 1), 16)
-    P = P0 * factor
-    K = spec.filt_len + (R - 1) * spec.num // spec.den + 32
-    itemsize = 2 if spec.fixed_point else 4
-    return P * K * R * itemsize
-
-
-def _dense_weight_bytes(spec: fd.FilterSpec) -> int:
-    group = fm.choose_group(spec.num, spec.den, spec.filt_len)
+def _dense_weight_bytes(spec: fd.FilterSpec, group: int) -> int:
     L = spec.filt_len + group * spec.num
     # fixed-universe dense weights are two int8 digit planes (~2 B/entry),
-    # float is f32 (4 B/entry) — mirroring _tiled_weight_bytes_estimate
+    # float is f32 (4 B/entry)
     itemsize = 2 if spec.fixed_point else 4
     return L * group * spec.den * itemsize
-
-
-# Tests set this True to run the PRODUCTION "auto" scheme-resolution path
-# (certificate -> int8 D=3 -> D=4 -> split5) under interpret mode; the
-# default short-circuits auto to "highest" off-TPU because CPU bf16/int8
-# matmuls are emulated and slow.  Real-TPU runs ignore this flag.
-AUTO_RESOLVE_UNDER_INTERPRET = False
-
-
-def _resolve_scheme(pallas_fir, w_cert: np.ndarray, scheme: str,
-                    pallas_interpret: bool):
-    """Shared scheme resolution for both Pallas kernel families.
-
-    Returns (scheme, int8p, scales): "auto" -> highest under interpret
-    (CPU bf16/int8 matmuls are emulated and slow), else int8 when the
-    digit-escalating certificate clears the gate, else split5; an explicit
-    "int8" request is refused past the hard cap.
-    """
-    if scheme not in ("auto", "int8", "split5", "highest"):
-        # reject unknown scheme strings (a typo like "INT8" would
-        # otherwise silently run the ~3x-cost highest path; the fixed
-        # universe already raises for schemes it can't honor)
-        raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-    int8p = None
-    if scheme == "auto":
-        if pallas_interpret and not AUTO_RESOLVE_UNDER_INTERPRET:
-            return "highest", None, ()
-        int8p = pallas_fir.int8_weights_auto(w_cert, _INT8_CERT_GATE)
-        scheme = "int8" if int8p is not None else "split5"
-    scales = ()
-    if scheme == "int8":
-        if int8p is None:
-            int8p = pallas_fir.int8_weights_auto(w_cert, _INT8_CERT_MAX)
-            if int8p is None:
-                raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-        scales = int8p[2]
-    return scheme, int8p, scales
-
-
-def _next_hist(hist, x, n_in: int, H: int):
-    """Last H rows of the virtual stream hist ++ x[:n_in].
-
-    When the launch quantum is smaller than the history window
-    (n_in < H — tiny target_chunk_frames with a long filter), part of the
-    previous history survives into the next launch; a plain slice of x
-    would clamp its negative start and silently corrupt the filter state.
-    """
-    if n_in >= H:
-        return jax.lax.dynamic_slice_in_dim(x, n_in - H, H, axis=0)
-    return jnp.concatenate([hist[n_in:], x[:n_in]], axis=0)
 
 
 def _adapt_hist(hist, rows: int, filt_len: int, cols: int) -> np.ndarray:
     """Re-layout a checkpointed filter history to THIS engine's hist-row
     geometry.  Valid history always occupies the LAST filt_len-1 rows
-    (no kernel reads a window starting above hist_rows-(filt_len-1);
-    leading rows are kernel-family alignment padding).  A checkpoint
-    taken under a different kernel family (dense: filt_len-1 rows,
-    tiled: 16-aligned rows) therefore restores losslessly — the failover
-    path in docs/serving.md rebuilds the engine on a healthy device,
-    which may resolve a different kernel.  A geometry that cannot be
-    adapted raises INVALID_ARG instead of being accepted and failing
-    inside the first dispatch (where the degradation guard would turn it
-    into permanent silent zero output)."""
+    (leading rows, if any, are alignment padding), so a checkpoint whose
+    history carries extra leading rows — older checkpoints were written
+    with filt_len-1 rounded up to 16 — restores losslessly.  A geometry
+    that cannot be adapted raises INVALID_ARG instead of being accepted
+    and failing inside the first dispatch (where the degradation guard
+    would turn it into permanent silent zero output)."""
     # np.array (copy), not asarray: a jnp-backed checkpoint hist would
     # alias as a READ-ONLY view and break degraded-mode slot writes
     hist = np.array(hist, dtype=np.int16)
@@ -214,84 +115,6 @@ def _adapt_hist(hist, rows: int, filt_len: int, cols: int) -> np.ndarray:
     if keep:
         out[rows - keep:] = hist[hist.shape[0] - keep:]
     return out
-
-
-def _hist_rows_tiled(filt_len: int) -> int:
-    """History rows for the concat-free kernel: filt_len-1 rounded up to the
-    int16 sublane tile so the hist/chunk boundary is 16-aligned."""
-    return -(-(filt_len - 1) // 16) * 16
-
-
-def _tiled_R(spec: fd.FilterSpec) -> int:
-    """Output-block height R for the phase-tiled kernels.
-
-    R = 128 (one MXU pass) is right when the per-block input span
-    R*num/den is comparable to filt_len — the flagship's [128, 264] int8
-    dot already runs at the chip's measured rate for that shape.  But
-    short-span configs (integer upsample ratios: 24k->48k has span 64,
-    K = 144) leave the per-block GEMM too small for the MXU to sustain
-    rate: measured ~62 T int8 MAC/s at [128, 136] vs ~95 T at [128, 264]
-    (experiments/mxu_peak.py), and the whole launch sat at 0.47 of its
-    roofline (BENCH r04).  Doubling R doubles the dot's M and span
-    without touching the math (same taps, same digit planes, more
-    zero-padding): R=256 measured +41% out samples/s on 24k->48k q5
-    (experiments/v3_wide_r.py); R=512 gives the MXU a still better shape
-    but K-padding (span + filt_len per output) costs more MACs than the
-    rate buys back.
-
-    Widen while the span stays under 96 rows, capped at 512, and never
-    past half the kernel family's VMEM weight budget (so widening can
-    never demote a tiled config to streamed/dense)."""
-    n_cols = 4 if (spec.fixed_point and not spec.use_direct) else 1
-    itemsize = 2 if spec.fixed_point else 4
-    budget = (_MAX_FIXED_TILED_WEIGHT_BYTES if spec.fixed_point
-              else _MAX_TILED_WEIGHT_BYTES)
-    R = 128
-    while R < 512 and (R * spec.num) // spec.den < 96:
-        R2 = R * 2
-        g = math.gcd(R2 * spec.num, spec.den)
-        S0 = R2 * spec.num // g                   # per P0 = den/g blocks
-        P = (spec.den // g) * (16 // math.gcd(S0, 16))
-        K_est = (-(-(R2 * spec.num) // spec.den)) + spec.filt_len + 16
-        if itemsize * P * K_est * R2 * n_cols > budget // 2:
-            break
-        R = R2
-    return R
-
-
-def _tiled_weights(spec: fd.FilterSpec, f0: int = 0, component: int = 0):
-    """Phase-tiled weight tables, cached ON the spec (FilterSpec is not
-    hashable — ndarray fields — so this mirrors its lazy-table pattern).
-    The geometry probe, make_batched_step, and the capped re-quantize all
-    need the same table; without the cache a near-256 MB streamed table
-    would be rebuilt 2-4x per engine construction.  Bounded at 4 entries
-    (serving rebuilds at a handful of f0s after skip_zeros/flush).
-
-    design_filter is lru_cache'd, so the spec — and this cache — is shared
-    across engines; concurrent engine construction from server threads
-    serializes build/eviction on the spec's own lock (the same lock the
-    spec's lazy tables take, so unrelated configs build in parallel; see
-    the contract in ops/filter_design.py)."""
-    with fd._spec_lock(spec):
-        cache = getattr(spec, "_ptw_cache", None)
-        if cache is None:
-            cache = {}
-            object.__setattr__(spec, "_ptw_cache", cache)
-        key = (f0, component)
-        if key not in cache:
-            if len(cache) >= 4:
-                cache.pop(next(iter(cache)))
-            H = _hist_rows_tiled(spec.filt_len)
-            pt = spec.phase_table
-            if spec.fixed_point and not spec.use_direct:
-                # fixed interpolate carries 4 accumulator tap planes; any
-                # component yields the same geometry (offsets/S/K depend on
-                # shapes only)
-                pt = spec.interp_taps[:, component, :]
-            cache[key] = ph.build_phase_tiled_weights(
-                pt, spec.num, spec.den, f0, R=_tiled_R(spec),
-                origin_shift=H - (spec.filt_len - 1))
-        return cache[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,20 +132,21 @@ class BatchedStep:
     hist_rows: int
     chunk_rows: int
     zero_tail: int
-    scheme: str = "highest"   # resolved matmul precision scheme
 
 
+def compile_step(fn, *args) -> None:
+    """Compile ``fn`` for these operands before the first launch.
 
-def _fixed_coef(spec: fd.FilterSpec, f0: int, P: int, R: int) -> np.ndarray:
-    """Per-block-phase Q15 cubic coefficients for the fixed interpolated
-    kernels: [P, 4, R] int32, coef[m] for blocks with k % P == m (phases
-    repeat with period P because P*R*num = 0 mod den by construction)."""
-    r = np.arange(R, dtype=np.int64)
-    coef = np.empty((P, 4, R), dtype=np.int32)
-    for m in range(P):
-        ph_idx = (f0 + (m * R + r) * spec.num) % spec.den
-        coef[m] = spec.interp_coef[ph_idx].T
-    return coef
+    A step the device cannot lower or compile raises ALLOC_FAILED here,
+    at engine construction (C's init fails the same way when
+    update_filter cannot allocate, resample.c:785-791).  Left to the
+    first dispatch, the error would trip the zero-fill degradation guard
+    and turn the engine into permanent silent zero output.  jit reuses
+    the executable for later calls with the same operand signature."""
+    try:
+        fn.lower(*args).compile()
+    except Exception as e:
+        raise ResamplerError(ResamplerErrorCode.ALLOC_FAILED) from e
 
 
 def _gather_blocks(spec: fd.FilterSpec, target_in_frames: int,
@@ -344,141 +168,64 @@ _MAX_GATHER_OUT_FRAMES = 1 << 22
 
 
 def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
-                     use_pallas: bool = False, f0: int = 0,
+                     f0: int = 0,
                      max_in_frames: int | None = None) -> BatchSpec:
     """Static launch geometry.  ``max_in_frames`` is a HARD cap on the
     launch quantum (the engine's availability latency).
 
-    The cap wraps the normal kernel selection rather than duplicating it:
-    the chosen geometry is checked against the cap and, if its rounding
-    overflowed, re-quantized within the SAME kernel family (floor to the
-    family's minimum quantum) or dropped to a dense geometry whose group
-    factor shrinks to fit (minimum quantum = num frames — one output
-    period).  A permissive cap never changes the uncapped geometry.
-    Raises INVALID_ARG when even one period exceeds the cap (f0-invariant
-    batching cannot go below num inputs)."""
+    The cap wraps the uncapped choice: if rounding pushed the quantum past
+    the cap, the gather geometry floors its block count and the dense
+    geometry shrinks its group factor to fit (minimum quantum = num
+    frames — one output period).  A permissive cap never changes the
+    uncapped geometry.  Raises INVALID_ARG when even one period exceeds
+    the cap (f0-invariant batching cannot go below num inputs)."""
     if max_in_frames is None:
-        return _launch_geometry_impl(spec, target_in_frames, use_pallas,
-                                     f0)
+        return _uncapped_geometry(spec, target_in_frames, f0)
     if spec.num > max_in_frames:
         # one den-outputs-per-num-inputs period is the floor of
         # phase-invariant batching; tighter budgets need the
         # single-stream core (ResamplerCore processes sample-by-sample)
         raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-    bspec = _launch_geometry_impl(
-        spec, min(target_in_frames, max_in_frames), use_pallas, f0)
+    bspec = _uncapped_geometry(spec, min(target_in_frames, max_in_frames),
+                               f0)
     if bspec.in_per_launch <= max_in_frames:
         return bspec
-    # rounding pushed past the cap: floor-quantize in the same family
-    if bspec.kernel in ("tiled", "streamed"):
-        from ..ops import pallas_fir
-        unit = bspec.S * (pallas_fir._v3_periods_per_program(bspec.P)
-                          if bspec.kernel == "tiled" else 1)
-        if unit <= max_in_frames:
-            b2 = _launch_geometry_impl(
-                spec, (max_in_frames // unit) * unit, use_pallas, f0)
-            if b2.in_per_launch <= max_in_frames:
-                return b2
     if bspec.kernel == "gather":
         return dataclasses.replace(
             bspec, n_blocks=_gather_blocks(spec, max_in_frames,
                                            hard_cap=True))
-    # dense geometry with the group factor capped to the budget
-    group = min(fm.choose_group(spec.num, spec.den, spec.filt_len),
-                max(1, max_in_frames // spec.num))
-    stride = group * spec.num
-    # re-apply the padded-weight cap at the CAPPED group: a spec whose
-    # uncapped geometry was tiled/streamed (per-phase weights fit) can
-    # still have a dense L x group*den matrix of GBs for huge den — route
-    # it to the weight-free gather geometry like the uncapped path would
-    L = spec.filt_len + stride
-    itemsize = 2 if spec.fixed_point else 4
-    if L * group * spec.den * itemsize > fm.MAX_PADDED_WEIGHT_BYTES:
-        return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
-                         filt_len=spec.filt_len, group=1,
-                         n_blocks=_gather_blocks(spec, max_in_frames,
-                                                 hard_cap=True),
-                         f0=f0, kernel="gather")
-    return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
-                     filt_len=spec.filt_len, group=group,
-                     n_blocks=max(1, max_in_frames // stride), f0=f0)
+    group = min(bspec.group, max(1, max_in_frames // spec.num))
+    return dataclasses.replace(
+        bspec, group=group,
+        n_blocks=max(1, max_in_frames // (group * spec.num)))
 
 
-def _launch_geometry_impl(spec: fd.FilterSpec, target_in_frames: int,
-                          use_pallas: bool, f0: int) -> BatchSpec:
-    if spec.fixed_point:
-        # FIXED universe: Pallas tiled kernel with the exact int8-plane
-        # scheme when the planes fit VMEM residency, else the dense XLA
-        # path (XLA's int8 GEMM lowering is slow — experiments/
-        # fixed_formulation_bench.py — but stays well above 1 G/s)
-        n_cols = 1 if spec.use_direct else 4
-        if (use_pallas and _tiled_weight_bytes_estimate(spec) * n_cols
-                <= 2 * _MAX_STREAMED_WEIGHT_BYTES):
-            ptw = _tiled_weights(spec, f0)
-            from ..ops import pallas_fir
-            if ptw.w.nbytes * n_cols <= _MAX_FIXED_TILED_WEIGHT_BYTES:
-                gp = pallas_fir._v3_periods_per_program(ptw.P)
-                n_periods = max(gp,
-                                round(target_in_frames / (ptw.S * gp)) * gp)
-                return BatchSpec(num=spec.num, den=spec.den,
-                                 quality=spec.quality,
-                                 filt_len=spec.filt_len, group=1,
-                                 n_blocks=n_periods * ptw.P, f0=f0,
-                                 kernel="tiled", S=ptw.S, P=ptw.P, R=ptw.R)
-            if ptw.w.nbytes * n_cols <= _MAX_STREAMED_WEIGHT_BYTES:
-                n_periods = max(1, round(target_in_frames / ptw.S))
-                return BatchSpec(num=spec.num, den=spec.den,
-                                 quality=spec.quality,
-                                 filt_len=spec.filt_len, group=1,
-                                 n_blocks=n_periods * ptw.P, f0=f0,
-                                 kernel="streamed", S=ptw.S, P=ptw.P,
-                                 R=ptw.R)
-        use_pallas = False
-    if use_pallas and (_tiled_weight_bytes_estimate(spec)
-                       <= 2 * _MAX_STREAMED_WEIGHT_BYTES):
-        from ..ops import pallas_fir
-        ptw = _tiled_weights(spec, f0)
-        if ptw.w.nbytes <= _MAX_TILED_WEIGHT_BYTES:
-            gp = pallas_fir._v3_periods_per_program(ptw.P)
-            n_periods = max(gp, round(target_in_frames / (ptw.S * gp)) * gp)
-            return BatchSpec(num=spec.num, den=spec.den,
-                             quality=spec.quality, filt_len=spec.filt_len,
-                             group=1, n_blocks=n_periods * ptw.P, f0=f0,
-                             kernel="tiled", S=ptw.S, P=ptw.P, R=ptw.R)
-        if ptw.w.nbytes <= _MAX_STREAMED_WEIGHT_BYTES:
-            n_periods = max(1, round(target_in_frames / ptw.S))
-            return BatchSpec(num=spec.num, den=spec.den,
-                             quality=spec.quality, filt_len=spec.filt_len,
-                             group=1, n_blocks=n_periods * ptw.P, f0=f0,
-                             kernel="streamed", S=ptw.S, P=ptw.P, R=ptw.R)
-    if _dense_weight_bytes(spec) > fm.MAX_PADDED_WEIGHT_BYTES:
-        # pathological huge-den ratio: any padded/cyclic weight matrix is
-        # GBs — fall to the weight-free gather geometry (one quantum of
-        # num inputs -> den outputs per block)
-        n_blocks = _gather_blocks(spec, target_in_frames)
-        return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
-                         filt_len=spec.filt_len, group=1,
-                         n_blocks=n_blocks, f0=f0, kernel="gather")
+def _uncapped_geometry(spec: fd.FilterSpec, target_in_frames: int,
+                       f0: int) -> BatchSpec:
     group = fm.choose_group(spec.num, spec.den, spec.filt_len)
-    stride = group * spec.num
-    n_blocks = max(1, round(target_in_frames / stride))
-    return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
-                     filt_len=spec.filt_len, group=group, n_blocks=n_blocks,
-                     f0=f0)
+    geom = dict(num=spec.num, den=spec.den, quality=spec.quality,
+                filt_len=spec.filt_len, f0=f0)
+    if _dense_weight_bytes(spec, group) > fm.MAX_PADDED_WEIGHT_BYTES:
+        # pathological huge-den ratio: any padded weight matrix is GBs —
+        # fall to the weight-free gather geometry (one quantum of num
+        # inputs -> den outputs per block)
+        return BatchSpec(group=1, kernel="gather",
+                         n_blocks=_gather_blocks(spec, target_in_frames),
+                         **geom)
+    n_blocks = max(1, round(target_in_frames / (group * spec.num)))
+    return BatchSpec(group=group, n_blocks=n_blocks, **geom)
 
 
 # Per-process memo for built steps: every make_batched_step call used to
 # jit a FRESH closure, so jax's trace cache (keyed on function identity)
 # missed even for an identical config — a MultiFleet bucket rebuilt after
-# idle-LRU eviction paid a full XLA retrace+compile (seconds on CPU, tens
-# of seconds cold on TPU; the round-4 soak spent ~80 s/round on exactly
-# this).  BatchedStep is frozen and its weights are read-only device
-# arrays, so instances are safely shared across engine incarnations.
-# Keyed on the full geometric identity of the design (num/den/quality/
-# universe/direct-vs-interpolated — design_filter is deterministic in
-# these) + launch geometry + trace-shaping knobs.  Size-bounded: streamed
-# weight sets reach 256 MB, so eviction is by total weight bytes AND
-# entry count (LRU).
+# idle-LRU eviction paid a full XLA retrace+compile.  BatchedStep is
+# frozen and its weights are read-only device arrays, so instances are
+# safely shared across engine incarnations.  Keyed on the full geometric
+# identity of the design (num/den/quality/universe/direct-vs-interpolated
+# — design_filter is deterministic in these) + launch geometry +
+# trace-shaping knobs.  Size-bounded by total weight bytes AND entry count
+# (LRU).
 _STEP_CACHE: "collections.OrderedDict[tuple, BatchedStep]" = \
     collections.OrderedDict()
 _STEP_CACHE_LOCK = threading.Lock()
@@ -498,32 +245,18 @@ def clear_step_cache() -> None:
 
 
 def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
-                      use_pallas: bool | None = None,
-                      pallas_interpret: bool = False,
                       mesh: jax.sharding.Mesh | None = None,
                       axis: str = "streams",
-                      scheme: str = "auto",
                       lane_major: bool = False) -> BatchedStep:
     """Memoizing front-end for :func:`_build_batched_step` (see its
     docstring for the step contract).  Mesh-wrapped steps bypass the memo
     (mesh identity is caller-owned)."""
     if mesh is not None:
-        return _build_batched_step(
-            spec, bspec, use_pallas=use_pallas,
-            pallas_interpret=pallas_interpret, mesh=mesh, axis=axis,
-            scheme=scheme, lane_major=lane_major)
-    # mirror _build_batched_step's use_pallas normalization so equivalent
-    # calls share a key
-    if spec.fixed_point:
-        eff_pallas = bspec.kernel in ("tiled", "streamed")
-    elif use_pallas is None:
-        eff_pallas = jax.default_backend() == "tpu"
-    else:
-        eff_pallas = bool(use_pallas)
+        return _build_batched_step(spec, bspec, mesh=mesh, axis=axis,
+                                   lane_major=lane_major)
     key = (spec.num, spec.den, spec.quality, spec.fixed_point,
            spec.use_direct, spec.filt_len, spec.oversample, bspec,
-           eff_pallas, bool(pallas_interpret), scheme, bool(lane_major),
-           AUTO_RESOLVE_UNDER_INTERPRET, jax.default_backend())
+           bool(lane_major), jax.default_backend())
     with _STEP_CACHE_LOCK:
         hit = _STEP_CACHE.get(key)
         if hit is not None:
@@ -532,10 +265,7 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     # build outside the lock: concurrent misses on DIFFERENT configs must
     # not serialize behind one compile (duplicate builds of the SAME key
     # are benign — first insert wins)
-    step = _build_batched_step(
-        spec, bspec, use_pallas=use_pallas,
-        pallas_interpret=pallas_interpret, scheme=scheme,
-        lane_major=lane_major)
+    step = _build_batched_step(spec, bspec, lane_major=lane_major)
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:
             _STEP_CACHE[key] = step
@@ -549,45 +279,39 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         return _STEP_CACHE.get(key, step)
 
 
+def _gather_starts(spec: fd.FilterSpec, bspec: BatchSpec, n_out: int,
+                   tile: int):
+    """Per-output window starts and phases of the gather geometry, padded
+    to a whole number of ``tile``-output tiles (starts clamped in range)."""
+    n_pad = max(-(-n_out // tile) * tile, tile)
+    t = bspec.f0 + np.arange(n_pad, dtype=np.int64) * spec.num
+    T = spec.filt_len - 1 + bspec.in_per_launch
+    starts = np.minimum(t // spec.den, max(T - spec.filt_len, 0))
+    return starts.astype(np.int32), (t % spec.den).astype(np.int64)
+
+
 def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
-                        use_pallas: bool | None = None,
-                        pallas_interpret: bool = False,
                         mesh: jax.sharding.Mesh | None = None,
                         axis: str = "streams",
-                        scheme: str = "auto",
                         lane_major: bool = False) -> BatchedStep:
     """Build the jitted steady-state step function.
 
-    ``scheme`` selects the float-universe matmul precision scheme on the
-    tiled AND streamed Pallas kernels: "int8" (certificate-gated digit
-    planes, 2*D passes at 2x MXU rate), "split5" (5 explicit bf16
-    passes), or "highest" (f32 Precision.HIGHEST, 6 bf16 passes).
-    "auto" = int8 when the worst-case certificate clears the gate, else
-    split5, on the real TPU path; highest under interpret mode (CPU
-    bf16/int8 matmuls are emulated and slow) — see _resolve_scheme.
-    Fixed-universe specs always use the exact scheme="fixed".
+    Float configs run fm.resample_conv_tm (f32 GEMM at
+    Precision.HIGHEST); FIXED_POINT configs run the exact int8-plane
+    fm.resample_conv_tm_fixed; huge-den ratios run the gather twins.
 
-    Time-major layout (lanes on the 128-wide minor axis — see
-    ops/pallas_fir.py).  ``B`` is free (any batch size re-traces once per
-    size).  The weight matrix rides as an operand so shardings propagate
-    (it is replicated under a mesh; history/x/y shard on their lane axis).
+    Time-major layout (lanes on the minor axis).  ``B`` is free (any batch
+    size re-traces once per size).  The weight matrix rides as an operand
+    so shardings propagate (it is replicated under a mesh; history/x/y
+    shard on their lane axis).
 
     With ``mesh``, the step is wrapped in ``shard_map`` over the lane axis:
-    streams are share-nothing, so each device runs the kernel on its lane
-    shard with zero collectives — this is how the Pallas kernel (an opaque
-    custom call the SPMD partitioner cannot split) scales across chips.
+    streams are share-nothing, so each device runs the step on its lane
+    shard with zero collectives.
     """
     N = spec.filt_len
     n_in = bspec.in_per_launch
     n_out = bspec.out_per_launch
-    if spec.fixed_point:
-        # the fixed universe has exactly one (exact) scheme; a float
-        # precision scheme request is a caller error, not a silent ignore
-        if scheme not in ("auto", "fixed"):
-            raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-        use_pallas = bspec.kernel in ("tiled", "streamed")
-    elif use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     def _wrap(step_impl):
         if lane_major:
@@ -611,254 +335,49 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
             out_specs=(P(None, axis), xy),
             check_vma=False))
 
-    if bspec.kernel == "streamed":
-        assert use_pallas, "streamed geometry requires the Pallas kernel"
-        from ..ops import pallas_fir
-        ptw = _tiled_weights(spec, bspec.f0)
-        assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
-        H = _hist_rows_tiled(N)
-        shift = H - (N - 1)
-        # Mosaic DMAs slices of the HBM weight set; the minor dim (K) must
-        # be lane-aligned
-        K_pad = -(-ptw.K // 128) * 128
-        w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
-        chunk_rows = -(-(n_in + K_pad) // 16) * 16
-        n_accum = 1
-        if spec.fixed_point:
-            scheme, scales = "fixed", ()
-            if spec.use_direct:
-                w_cat = w_np
-            else:
-                n_accum = 4
-                comps = [w_np]
-                for c in range(1, 4):
-                    pc = _tiled_weights(spec, bspec.f0, component=c)
-                    assert pc.offsets.tolist() == ptw.offsets.tolist()
-                    comps.append(np.pad(pc.w,
-                                        ((0, 0), (0, K_pad - ptw.K),
-                                         (0, 0))))
-                w_cat = np.concatenate(comps, axis=2)  # c-major columns
-            planes, bias = pallas_fir.fixed_weight_planes_tiled(w_cat)
-            # [2, P, C, K] -> [P, 2, C, K]: one DMA per block's planes
-            w_streamed = (jnp.asarray(np.ascontiguousarray(
-                planes.transpose(1, 0, 2, 3))), jnp.asarray(bias))
-            if n_accum == 4:
-                w_streamed = w_streamed + (jnp.asarray(
-                    _fixed_coef(spec, bspec.f0, ptw.P, ptw.R)),)
-            conv = functools.partial(
-                pallas_fir.resample_conv_tm_pallas_v4,
-                n_blocks=bspec.n_blocks, shift=shift, num=spec.num,
-                den=spec.den, f0=bspec.f0, interpret=pallas_interpret,
-                scheme="fixed", n_accum=n_accum)
-
-            def step(hist, x, w):
-                y = conv(hist, x, w)[:n_out]
-                return _next_hist(hist, x, n_in, H), y
-
-            return BatchedStep(fn=_wrap(step), w=w_streamed, hist_rows=H,
-                               chunk_rows=chunk_rows, zero_tail=K_pad,
-                               scheme="fixed")
-        scheme, int8p, scales = _resolve_scheme(pallas_fir, w_np, scheme,
-                                                pallas_interpret)
-        if scheme == "int8":
-            planes, bias = int8p[0], int8p[1]
-            # [D, P, K, R] -> [P, D, R, K]: plane axis second so one DMA
-            # fetches a block's planes contiguously
-            w_streamed = (jnp.asarray(np.ascontiguousarray(
-                planes.transpose(1, 0, 3, 2))), jnp.asarray(bias))
-        elif scheme == "split5":
-            # [3, P, K, R] -> [P, 3, R, K]
-            w_streamed = jnp.asarray(np.ascontiguousarray(
-                pallas_fir.split5_weights(w_np).transpose(1, 0, 3, 2)))
-        else:
-            w_streamed = jnp.asarray(
-                np.ascontiguousarray(w_np.transpose(0, 2, 1)))
-        conv = functools.partial(pallas_fir.resample_conv_tm_pallas_v4,
-                                 n_blocks=bspec.n_blocks, shift=shift,
-                                 num=spec.num, den=spec.den, f0=bspec.f0,
-                                 interpret=pallas_interpret, scheme=scheme,
-                                 scales=scales)
-
-        def step(hist, x, w):
-            y = conv(hist, x, w)[:n_out]
-            return _next_hist(hist, x, n_in, H), y
-
-        return BatchedStep(fn=_wrap(step), w=w_streamed, hist_rows=H,
-                           chunk_rows=chunk_rows, zero_tail=K_pad,
-                           scheme=scheme)
-
-    if bspec.kernel == "tiled":
-        assert use_pallas, "tiled geometry requires the Pallas kernel"
-        from ..ops import pallas_fir
-        ptw = _tiled_weights(spec, bspec.f0)
-        n_accum = 1
-        if spec.fixed_point:
-            scheme, scales = "fixed", ()
-        else:
-            # int8 (2*D MXU passes at 2x rate ~ D bf16-equivalents, D=3/4)
-            # wins over split5 when its rigorous worst-case certificate
-            # leaves comfortable margin inside the <=1 LSB contract.
-            scheme, int8p, scales = _resolve_scheme(pallas_fir, ptw.w,
-                                                    scheme,
-                                                    pallas_interpret)
-        assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
-        H = _hist_rows_tiled(N)
-        n_periods = bspec.n_blocks // ptw.P
-        back = pallas_fir._v3_back(ptw.S, H)
-        gp = pallas_fir._v3_periods_per_program(ptw.P)
-        V = pallas_fir._v3_views(ptw.S, ptw.K, H, ptw.offsets) + (gp - 1)
-        chunk_rows = (n_periods - back + V) * ptw.S
-        offsets = tuple(int(o) for o in ptw.offsets)
-        if scheme == "fixed":
-            if spec.use_direct:
-                w_cat = ptw.w
-            else:
-                n_accum = 4
-                comps = [ptw.w]
-                for c in range(1, 4):
-                    pc = _tiled_weights(spec, bspec.f0, component=c)
-                    assert pc.offsets.tolist() == list(offsets)
-                    comps.append(pc.w)
-                w_cat = np.concatenate(comps, axis=2)  # c-major columns
-            planes, bias = pallas_fir.fixed_weight_planes_tiled(w_cat)
-            w_host = (jnp.asarray(planes), jnp.asarray(bias))
-            if n_accum == 4:
-                w_host = w_host + (jnp.asarray(
-                    _fixed_coef(spec, bspec.f0, ptw.P, ptw.R)),)
-        elif scheme == "int8":
-            w_host = (jnp.asarray(int8p[0]), jnp.asarray(int8p[1]))
-        elif scheme == "split5":
-            w_host = jnp.asarray(pallas_fir.split5_weights(ptw.w))
-        else:
-            w_host = jnp.asarray(ptw.w)
-        conv = functools.partial(pallas_fir.resample_conv_tm_pallas_v3,
-                                 offsets=offsets, S=ptw.S,
-                                 n_blocks=bspec.n_blocks,
-                                 interpret=pallas_interpret, scheme=scheme,
-                                 scales=scales, n_accum=n_accum)
-
-        def step(hist, x, w):
-            y = conv(hist, x, w)[:n_out]
-            return _next_hist(hist, x, n_in, H), y
-
-        return BatchedStep(fn=_wrap(step), w=w_host,
-                           hist_rows=H, chunk_rows=chunk_rows,
-                           zero_tail=ptw.K, scheme=scheme)
-
-    stride = bspec.stride
-
     if bspec.kernel == "gather":
         # pathological huge-den ratios: weight-free per-output tap gather.
         # Plain jnp, so the lane axis shards across a mesh exactly like
-        # the other kernels: _wrap's shard_map splits hist/x/y on lanes
-        # and replicates (taps, starts[, coef]) — streams are
-        # share-nothing, zero collectives (tests/test_batch.py pins
-        # 8-virtual-device bit-equality at 44100->44101).
-        num, den, f0 = spec.num, spec.den, bspec.f0
-        if spec.fixed_point:
-            # on-device exact formulation (fm.resample_gather_fixed):
-            # per-output tap rows gathered host-side ONCE at build time,
-            # wrapping-int32 accumulation on device — bit-exact in any
-            # order, and the step stays non-blocking (the former host
-            # NumPy loop ran inside every launch)
-            tile = 2048
-            n_pad = max(-(-n_out // tile) * tile, tile)
-            k = np.arange(n_pad, dtype=np.int64)
-            t = f0 + k * num
-            starts_np = (t // den).astype(np.int32)
-            T = N - 1 + n_in
-            starts_np = np.minimum(starts_np, max(T - N, 0)).astype(
-                np.int32)
-            phases = (t % den).astype(np.int64)
-            if spec.use_direct:
-                w_fix = (jnp.asarray(spec.phase_rows(phases)),
-                         jnp.asarray(starts_np))
-            else:
-                taps_r, coef_r = spec.interp_rows(phases)
-                w_fix = (jnp.asarray(taps_r),
-                         jnp.asarray(starts_np),
-                         jnp.asarray(coef_r.astype(np.int32)))
-
-            def step(hist, x, w):
-                if len(w) == 3:
-                    taps, starts, coef = w
-                else:
-                    (taps, starts), coef = w, None
-                X = jnp.concatenate([hist, x[:n_in]], axis=0)
-                y = fm.resample_gather_fixed(X.T, taps, starts, coef,
-                                             tile=tile)
-                return X[n_in:], y[:, :n_out].T
-
-            return BatchedStep(fn=_wrap(step), w=w_fix,
-                               hist_rows=N - 1, chunk_rows=n_in,
-                               zero_tail=0, scheme="fixed")
-
+        # the dense step: _wrap's shard_map splits hist/x/y on lanes and
+        # replicates (taps, starts[, coef]) — streams are share-nothing,
+        # zero collectives.
         tile = 2048
-        n_pad = max(-(-n_out // tile) * tile, tile)
-        k = np.arange(n_pad, dtype=np.int64)
-        t = f0 + k * num
-        starts_np = (t // den).astype(np.int32)
-        T = N - 1 + n_in
-        starts_np = np.minimum(starts_np, max(T - N, 0)).astype(np.int32)
-        taps_np = spec.phase_rows((t % den).astype(np.int64))
+        starts_np, phases = _gather_starts(spec, bspec, n_out, tile)
+        if spec.fixed_point and not spec.use_direct:
+            taps_r, coef_r = spec.interp_rows(phases)
+            w_g = (jnp.asarray(taps_r), jnp.asarray(starts_np),
+                   jnp.asarray(coef_r.astype(np.int32)))
+        else:
+            w_g = (jnp.asarray(spec.phase_rows(phases)),
+                   jnp.asarray(starts_np))
+        # the fixed twin accumulates in wrapping int32 on device —
+        # bit-exact in any order
+        conv = functools.partial(
+            fm.resample_gather_fixed if spec.fixed_point
+            else fm.resample_gather, tile=tile)
 
         def step(hist, x, w):
-            taps, starts = w
             X = jnp.concatenate([hist, x[:n_in]], axis=0)
-            y = fm.resample_gather(X.T, taps, starts, tile=tile)
+            y = conv(X.T, *w)
             return X[n_in:], y[:, :n_out].T
 
-        return BatchedStep(fn=_wrap(step),
-                           w=(jnp.asarray(taps_np), jnp.asarray(starts_np)),
-                           hist_rows=N - 1, chunk_rows=n_in, zero_tail=0,
-                           scheme="highest")
+        return BatchedStep(fn=_wrap(step), w=w_g, hist_rows=N - 1,
+                           chunk_rows=n_in, zero_tail=0)
 
-    if spec.fixed_point:
-        # FIXED_POINT universe: exact int8-plane matmul (bit-exact vs the
-        # fixed oracle — wrapping int32 sums are order-independent, see
-        # ops/fir_matmul.resample_conv_tm_fixed).
-        assert bspec.kernel == "dense"
-        if spec.use_direct:
-            w_np = ph.build_padded_weights(spec.phase_table, spec.num,
-                                           spec.den, bspec.f0, bspec.group)
-            n_accum = 1
-        else:
-            # four explicit accumulator columns per output (the integer
-            # cubic mix is nonlinear in the taps), column order c-minor
-            comps = [ph.build_padded_weights(spec.interp_taps[:, c, :],
-                                             spec.num, spec.den, bspec.f0,
-                                             bspec.group) for c in range(4)]
-            w_np = np.stack(comps, axis=2).reshape(comps[0].shape[0], -1)
-            n_accum = 4
-        L_pad = -(-w_np.shape[0] // stride) * stride
-        if L_pad != w_np.shape[0]:
-            w_np = np.pad(w_np, ((0, L_pad - w_np.shape[0]), (0, 0)))
-        A = L_pad // stride
-        T = (bspec.n_blocks + A) * stride
-        pad = T - (N - 1 + n_in)
-        assert pad >= 0
-        planes = fm.fixed_weight_planes(w_np)
-        w_host = tuple(jnp.asarray(p) for p in planes)
-        if n_accum == 4:
-            bc = ph.block_constants(spec.num, spec.den, bspec.f0,
-                                    bspec.group)
-            coef = spec.interp_coef[bc.p].astype(np.int32)  # [R, 4]
-            w_host = w_host + (jnp.asarray(coef),)
-        conv = functools.partial(fm.resample_conv_tm_fixed, stride=stride,
-                                 n_accum=n_accum)
-
-        def step(hist, x, w):
-            X = jnp.concatenate(
-                [hist, x, jnp.zeros((pad, x.shape[1]), dtype=jnp.int16)],
-                axis=0)
-            y = conv(X, w)[:n_out]
-            return jax.lax.dynamic_slice_in_dim(X, n_in, N - 1, axis=0), y
-
-        return BatchedStep(fn=_wrap(step), w=w_host, hist_rows=N - 1,
-                           chunk_rows=n_in, zero_tail=0, scheme="fixed")
-
-    w_np = ph.build_padded_weights(spec.phase_table, spec.num, spec.den,
-                                   bspec.f0, bspec.group)
+    stride = bspec.stride
+    if spec.fixed_point and not spec.use_direct:
+        # FIXED interpolated: four explicit accumulator columns per output
+        # (the integer cubic mix is nonlinear in the taps), column order
+        # c-minor
+        comps = [ph.build_padded_weights(spec.interp_taps[:, c, :],
+                                         spec.num, spec.den, bspec.f0,
+                                         bspec.group) for c in range(4)]
+        w_np = np.stack(comps, axis=2).reshape(comps[0].shape[0], -1)
+        n_accum = 4
+    else:
+        w_np = ph.build_padded_weights(spec.phase_table, spec.num, spec.den,
+                                       bspec.f0, bspec.group)
+        n_accum = 1
     L_pad = -(-w_np.shape[0] // stride) * stride
     if L_pad != w_np.shape[0]:
         w_np = np.pad(w_np, ((0, L_pad - w_np.shape[0]), (0, 0)))
@@ -868,11 +387,20 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     pad = T - (N - 1 + n_in)
     assert pad >= 0
 
-    if use_pallas:
-        from ..ops import pallas_fir
-        conv = functools.partial(pallas_fir.resample_conv_tm_pallas,
-                                 stride=stride, interpret=pallas_interpret)
+    if spec.fixed_point:
+        # FIXED_POINT universe: exact int8-plane matmul (bit-exact vs the
+        # fixed reference — wrapping int32 sums are order-independent, see
+        # ops/fir_matmul.resample_conv_tm_fixed)
+        w_dev = tuple(jnp.asarray(p) for p in fm.fixed_weight_planes(w_np))
+        if n_accum == 4:
+            bc = ph.block_constants(spec.num, spec.den, bspec.f0,
+                                    bspec.group)
+            w_dev += (jnp.asarray(
+                spec.interp_coef[bc.p].astype(np.int32)),)  # [R, 4]
+        conv = functools.partial(fm.resample_conv_tm_fixed, stride=stride,
+                                 n_accum=n_accum)
     else:
+        w_dev = jnp.asarray(w_np)
         conv = functools.partial(fm.resample_conv_tm, stride=stride)
 
     def step(hist, x, w):
@@ -881,8 +409,8 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         y = conv(X, w)[:n_out]
         return jax.lax.dynamic_slice_in_dim(X, n_in, N - 1, axis=0), y
 
-    return BatchedStep(fn=_wrap(step), w=jnp.asarray(w_np),
-                       hist_rows=N - 1, chunk_rows=n_in, zero_tail=0)
+    return BatchedStep(fn=_wrap(step), w=w_dev, hist_rows=N - 1,
+                       chunk_rows=n_in, zero_tail=0)
 
 
 class _HostFifo:
@@ -983,9 +511,6 @@ class BatchedResampler(ZeroFillDegradation):
                  target_chunk_frames: int = 4096,
                  mesh: jax.sharding.Mesh | None = None,
                  axis: str = "streams",
-                 use_pallas: bool | None = None,
-                 pallas_interpret: bool = False,
-                 scheme: str = "auto",
                  fixed_point: bool = False,
                  max_latency_ms: float | None = None):
         if n_streams <= 0 or channels <= 0:
@@ -1008,18 +533,13 @@ class BatchedResampler(ZeroFillDegradation):
             # RESAMPLER_ERR_OVERFLOW (resample.c:643-656) — surface the
             # same error code, like ResamplerCore._update_filter
             raise ResamplerError(ResamplerErrorCode.OVERFLOW)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
         self.B = n_streams * channels
         self._target = target_chunk_frames
         # hard latency budget: the launch quantum IS the availability
         # latency; a low-latency engine (e.g. the voip preset's 20 ms)
-        # caps the quantum, trading MXU efficiency for responsiveness
+        # caps the quantum, trading GEMM efficiency for responsiveness
         self._max_in = (None if max_latency_ms is None
                         else int(max_latency_ms * in_rate / 1000))
-        self._use_pallas = use_pallas
-        self._interpret = pallas_interpret
-        self._scheme = scheme
         self._mesh, self._axis = mesh, axis
         if mesh is not None:
             P = jax.sharding.PartitionSpec
@@ -1038,11 +558,9 @@ class BatchedResampler(ZeroFillDegradation):
         # revisit phases; keep a few so repeat switches don't re-trace)
         self._step_cache: dict = {}
         self._build_step(0)
-        # time-major: lanes ride the minor (128-wide) axis on device
-        hist = jnp.zeros((self._step.hist_rows, self.B), dtype=jnp.int16)
-        if self._lane_sharding is not None:
-            hist = jax.device_put(hist, self._lane_sharding)
-        self._hist = hist
+        # time-major: lanes ride the minor axis on device
+        self._hist = self._on_lanes(
+            jnp.zeros((self._step.hist_rows, self.B), dtype=jnp.int16))
         self._skip = 0
         # staging FIFO of not-yet-launched input frames, [*, B] host int16
         self._staged = _HostFifo(self.B)
@@ -1065,17 +583,19 @@ class BatchedResampler(ZeroFillDegradation):
             return
         cached = self._step_cache.get(f0)
         if cached is None:
-            bspec = _launch_geometry(self.spec, self._target,
-                                     use_pallas=self._use_pallas, f0=f0,
+            bspec = _launch_geometry(self.spec, self._target, f0=f0,
                                      max_in_frames=self._max_in)
-            step = make_batched_step(self.spec, bspec,
-                                     use_pallas=self._use_pallas,
-                                     pallas_interpret=self._interpret,
-                                     mesh=self._mesh, axis=self._axis,
-                                     scheme=self._scheme)
+            step = make_batched_step(self.spec, bspec, mesh=self._mesh,
+                                     axis=self._axis)
             w = step.w
             if self._repl_sharding is not None:
                 w = jax.device_put(w, self._repl_sharding)
+            compile_step(step.fn,
+                         self._on_lanes(jnp.zeros(
+                             (step.hist_rows, self.B), dtype=jnp.int16)),
+                         self._on_lanes(jnp.zeros(
+                             (step.chunk_rows, self.B), dtype=jnp.int16)),
+                         w)
             # persistent launch slabs, double-buffered: with the depth-1
             # dispatch pipeline in process(), slab i may still be
             # transferring while slab i+1 is filled (see FleetResampler)
@@ -1141,10 +661,7 @@ class BatchedResampler(ZeroFillDegradation):
         if self._degraded:
             self._hist = hist_np
         else:
-            hist = jnp.asarray(hist_np)
-            if self._lane_sharding is not None:
-                hist = jax.device_put(hist, self._lane_sharding)
-            self._hist = hist
+            self._hist = self._on_lanes(jnp.asarray(hist_np))
         t = self._f0 + m * num
         self._skip = t // den - s     # pending origin advance, >= 0
         if t % den != self._f0:
@@ -1173,11 +690,8 @@ class BatchedResampler(ZeroFillDegradation):
             self._hist = np.zeros((self._step.hist_rows, self.B),
                                   dtype=np.int16)
         else:
-            self._hist = jnp.zeros((self._step.hist_rows, self.B),
-                                   dtype=jnp.int16)
-            if self._lane_sharding is not None:
-                self._hist = jax.device_put(self._hist,
-                                            self._lane_sharding)
+            self._hist = self._on_lanes(
+                jnp.zeros((self._step.hist_rows, self.B), dtype=jnp.int16))
         self._staged = _HostFifo(self.B)
         self._skip = 0
         self._carry_out = []
@@ -1215,10 +729,7 @@ class BatchedResampler(ZeroFillDegradation):
         if self._degraded:
             self._hist = hist_np
         else:
-            hist = jnp.asarray(hist_np)
-            if self._lane_sharding is not None:
-                hist = jax.device_put(hist, self._lane_sharding)
-            self._hist = hist
+            self._hist = self._on_lanes(jnp.asarray(hist_np))
         self._staged = _HostFifo(self.B)
         self._staged.push(np.array(state["staged"], dtype=np.int16),
                           owned=True)
@@ -1243,9 +754,8 @@ class BatchedResampler(ZeroFillDegradation):
             if self._degraded:
                 self._hist = np.concatenate([self._hist[k:], x[:k]], axis=0)
             else:
-                absorbed = jnp.asarray(np.ascontiguousarray(x[:k]))
-                if self._lane_sharding is not None:
-                    absorbed = jax.device_put(absorbed, self._lane_sharding)
+                absorbed = self._on_lanes(
+                    jnp.asarray(np.ascontiguousarray(x[:k])))
                 self._hist = jnp.concatenate([self._hist[k:], absorbed],
                                              axis=0)
             x = x[k:]
@@ -1308,9 +818,7 @@ class BatchedResampler(ZeroFillDegradation):
             self._slab_i ^= 1
             slab[:q] = chunk_np
         try:
-            x = jnp.asarray(slab)
-            if self._lane_sharding is not None:
-                x = jax.device_put(x, self._lane_sharding)
+            x = self._on_lanes(jnp.asarray(slab))
             return self._step.fn(self._hist, x, self._w)
         except Exception:
             self._enter_degraded()
@@ -1318,6 +826,13 @@ class BatchedResampler(ZeroFillDegradation):
 
     # -- layout helpers ---------------------------------------------------
     # lane l = stream*channels + channel; time-major [n, B] on device.
+
+    def _on_lanes(self, a):
+        """Place a time-major [n, B] array on the engine's lane sharding
+        (identity without a mesh)."""
+        if self._lane_sharding is None:
+            return a
+        return jax.device_put(a, self._lane_sharding)
 
     def _to_lanes(self, frames: np.ndarray) -> np.ndarray:
         frames = np.asarray(frames, dtype=np.int16)

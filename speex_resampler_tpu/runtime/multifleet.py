@@ -178,8 +178,6 @@ class _Bucket:
 class MultiFleet:
     def __init__(self, channels: int, *, capacity_per_bucket: int = 256,
                  target_chunk_frames: int = 4096,
-                 use_pallas: bool | None = None,
-                 pallas_interpret: bool = False,
                  fixed_point: bool = False,
                  max_latency_ms: float | None = None,
                  max_staged_frames: int | None = None,
@@ -207,8 +205,6 @@ class MultiFleet:
         self.capacity = capacity_per_bucket
         self._target = target_chunk_frames
         self._max_latency_ms = max_latency_ms
-        self._use_pallas = use_pallas
-        self._interpret = pallas_interpret
         self.fixed_point = bool(fixed_point)
         self.max_staged_frames = max_staged_frames
         self.max_banked_frames = max_banked_frames
@@ -229,8 +225,6 @@ class MultiFleet:
         return FleetResampler(
             self.capacity, self.channels, in_rate, out_rate, quality,
             target_chunk_frames=self._target,
-            use_pallas=self._use_pallas,
-            pallas_interpret=self._interpret,
             fixed_point=self.fixed_point,
             max_latency_ms=self._max_latency_ms,
             max_staged_frames=self.max_staged_frames,

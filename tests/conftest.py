@@ -1,7 +1,8 @@
 """Test harness configuration.
 
 Tests run hermetically on CPU with 8 virtual devices (multi-chip sharding
-tests use them as a virtual mesh); bench.py exercises the real TPU chip.
+tests use them as a virtual mesh); chip_smoke.py and bench.py run on the
+GPU.
 
 The golden source of truth is the reference C core compiled natively
 (tests/oracle/oracle.c) with the same defines as the shipped WASM build —
@@ -21,6 +22,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+
+from speex_resampler_tpu.utils.parity import lsb_tie_limit  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 REFERENCE = Path("/root/reference")
@@ -108,14 +111,6 @@ def oracle_process(oracle_bin, tmp_path, pcm_bytes, channels, in_rate,
         cmd.append("1")
     subprocess.run(cmd, check=True)
     return np.fromfile(outp, dtype=np.int16)
-
-
-def lsb_tie_limit(n: int, max_mismatch_rate: float = 5e-3) -> float:
-    """The Poisson-aware tie-count bound (mean + 4 sigma + 2) shared by
-    assert_lsb_close and the standalone fuzz campaign — one definition so
-    CI and campaign verdicts can never disagree on the same draw."""
-    lam = max_mismatch_rate * n
-    return lam + 4.0 * float(np.sqrt(lam * (1.0 - max_mismatch_rate))) + 2.0
 
 
 def assert_lsb_close(ours: np.ndarray, golden: np.ndarray,

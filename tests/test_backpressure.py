@@ -24,8 +24,7 @@ RATES = (24000, 48000, 5)   # num=1, den=2: small dense quantum
 
 
 def _fleet(**kw):
-    return FleetResampler(S, C, *RATES, target_chunk_frames=256,
-                          use_pallas=False, **kw)
+    return FleetResampler(S, C, *RATES, target_chunk_frames=256, **kw)
 
 
 def _frames(n, seed=0):
@@ -130,7 +129,7 @@ def test_outputs_identical_with_and_without_watermarks():
 
 def test_multifleet_watermarks():
     mf = MultiFleet(channels=C, capacity_per_bucket=4,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_staged_frames=600, max_banked_frames=600)
     mf.add_stream("a", *RATES)
     mf.add_stream("b", 44100, 48000, 7)
@@ -184,7 +183,7 @@ def _mid_transition_multifleet(max_staged, max_banked):
     generically nonzero), then switch to 48k->44.1k (den=147) with too
     little buffered input for the transition to reach phase 0."""
     mf = MultiFleet(channels=C, capacity_per_bucket=4,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_staged_frames=max_staged,
                     max_banked_frames=max_banked)
     mf.add_stream("a", 44100, 48000, 7)

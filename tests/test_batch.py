@@ -1,6 +1,6 @@
 """Batched multi-stream engine parity and sharding tests.
 
-The contract (BASELINE.json "Batched serving" config): a batch of S streams
+The contract (the batched serving deployment): a batch of S streams
 produces, per stream, the same samples as S independent single-stream
 resamplers — which are themselves golden-tested against the C oracle in
 test_golden.py.  Comparisons allow the 1-LSB rounding-tie bound
@@ -15,11 +15,7 @@ import pytest
 
 from speex_resampler_tpu.core.resampler import ResamplerCore
 from speex_resampler_tpu.parallel.batch import BatchedResampler
-from speex_resampler_tpu.ops import fir_matmul as fm
-from speex_resampler_tpu.ops import pallas_fir as pf
 from speex_resampler_tpu.ops import filter_design as fd
-from speex_resampler_tpu.ops import phase as ph
-from speex_resampler_tpu.utils.host import to_host
 
 from conftest import assert_lsb_close
 
@@ -42,6 +38,16 @@ def _core_reference(frames, in_rate, out_rate, quality):
     return np.stack([o[:n] for o in outs])
 
 
+def _assert_matches_core(eng, frames, in_rate, out_rate, quality):
+    """Whole-stream engine output (process + flush) vs the per-stream
+    single-core reference."""
+    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
+    ref = _core_reference(frames, in_rate, out_rate, quality)
+    m = min(got.shape[1], ref.shape[1])
+    assert m > 0 and abs(got.shape[1] - ref.shape[1]) <= 1
+    assert_lsb_close(got[:, :m].ravel(), ref[:, :m].ravel())
+
+
 @pytest.mark.parametrize("in_rate,out_rate,quality", [
     (44100, 48000, 7),    # interpolated path, the flagship config
     (24000, 48000, 5),    # direct path, integer upsample
@@ -51,7 +57,7 @@ def test_batched_matches_single_stream(in_rate, out_rate, quality):
     S, C, n = 3, 2, 9000
     frames = _random_frames(S, n, C, seed=quality)
     eng = BatchedResampler(S, C, in_rate, out_rate, quality,
-                           target_chunk_frames=1024, use_pallas=False)
+                           target_chunk_frames=1024)
     out = eng.process(frames)
     tail = eng.flush()
     full = np.concatenate([out, tail], axis=1)
@@ -65,10 +71,10 @@ def test_batched_chunking_invariance():
     """Feeding tiny irregular chunks == feeding everything at once."""
     S, C = 2, 1
     frames = _random_frames(S, 7000, C, seed=3)
-    eng1 = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    eng1 = BatchedResampler(S, C, 44100, 48000, 7)
     a = np.concatenate([eng1.process(frames), eng1.flush()], axis=1)
 
-    eng2 = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    eng2 = BatchedResampler(S, C, 44100, 48000, 7)
     outs, pos = [], 0
     rng = np.random.default_rng(0)
     while pos < frames.shape[1]:
@@ -84,7 +90,7 @@ def test_batched_skip_zeros_matches_core():
     S, C = 2, 1
     frames = _random_frames(S, 6000, C, seed=4)
     eng = BatchedResampler(S, C, 24000, 48000, 5,
-                           target_chunk_frames=512, use_pallas=False)
+                           target_chunk_frames=512)
     eng.skip_zeros()
     full = np.concatenate([eng.process(frames), eng.flush()], axis=1)
 
@@ -103,75 +109,11 @@ def test_batched_skip_zeros_matches_core():
 def test_batched_reset_mem():
     S, C = 2, 2
     frames = _random_frames(S, 5000, C, seed=5)
-    eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    eng = BatchedResampler(S, C, 44100, 48000, 7)
     a = np.concatenate([eng.process(frames), eng.flush()], axis=1)
     eng.reset_mem()
     b = np.concatenate([eng.process(frames), eng.flush()], axis=1)
     assert np.array_equal(a, b)
-
-
-def test_pallas_kernel_matches_xla():
-    """resample_conv_tm_pallas (interpret mode) vs the XLA time-major path
-    and a float64 ground truth, on the flagship Q7 44.1k->48k filter."""
-    rng = np.random.default_rng(1)
-    spec = fd.design_filter(147, 160, 7)
-    stride = 147
-    w = ph.build_padded_weights(spec.phase_table, 147, 160, 0, 1)
-    L_pad = -(-w.shape[0] // stride) * stride
-    w = np.pad(w, ((0, L_pad - w.shape[0]), (0, 0)))
-    n_blocks, B = 4, 136   # B deliberately not a multiple of 128
-    A = L_pad // stride
-    T = (n_blocks + A) * stride
-    x = (rng.integers(-32768, 32768, size=(T, B)) // 2).astype(np.int16)
-
-    y_tm = to_host(fm.resample_conv_tm(jnp.asarray(x), jnp.asarray(w),
-                                       stride=stride))
-    y_pl = to_host(pf.resample_conv_tm_pallas(
-        jnp.asarray(x), jnp.asarray(w), stride=stride, interpret=True,
-        lane_tile=128))
-    assert y_pl.shape == y_tm.shape == (n_blocks * 160, B)
-    assert_lsb_close(y_pl.ravel(), y_tm.ravel())
-
-    blocks = np.stack([x[b * stride:b * stride + L_pad].astype(np.float64)
-                       for b in range(n_blocks)])
-    gold = np.einsum("lr,nlb->nrb", w.astype(np.float64),
-                     blocks).reshape(n_blocks * 160, B)
-    gold = np.clip(np.floor(0.5 + gold), -32768, 32767).astype(np.int16)
-    assert_lsb_close(y_pl.ravel(), gold.ravel())
-
-
-def test_batched_engine_pallas_interpret():
-    """Whole engine through the Pallas kernels (interpret mode on CPU):
-    both the phase-tiled v2 geometry (auto-chosen) and the dense v1."""
-    from speex_resampler_tpu.parallel.batch import (_launch_geometry,
-                                                    make_batched_step)
-    import jax.numpy as jnp
-
-    S, C = 2, 1
-    frames = _random_frames(S, 5000, C, seed=6)
-    ref_eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-
-    v2_eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                              pallas_interpret=True)
-    assert v2_eng.bspec.kernel == "tiled"
-    got = np.concatenate([v2_eng.process(frames), v2_eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
-
-    # dense v1 pallas: same geometry as a FRESH XLA reference engine
-    # (ref_eng.bspec was rebuilt at a new f0 by its continuation-exact
-    # flush above, so it no longer describes a from-reset launch)
-    ref1_eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
-    spec = ref1_eng.spec
-    bstep = make_batched_step(spec, ref1_eng.bspec, use_pallas=True,
-                              pallas_interpret=True)
-    hist = jnp.zeros((bstep.hist_rows, S * C), dtype=jnp.int16)
-    x = to_host(frames[:, :ref1_eng.bspec.in_per_launch, 0].T)
-    n_in1 = ref1_eng.bspec.in_per_launch
-    _, y1 = bstep.fn(hist, jnp.asarray(x), bstep.w)
-    ref1 = ref1_eng.process(frames[:, :n_in1])
-    assert_lsb_close(to_host(y1).T.reshape(S, -1, C).ravel(), ref1.ravel())
 
 
 def test_batched_mesh_sharded_matches_unsharded():
@@ -183,19 +125,19 @@ def test_batched_mesh_sharded_matches_unsharded():
     S, C = 8, 2
     frames = _random_frames(S, 6000, C, seed=7)
 
-    plain = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    plain = BatchedResampler(S, C, 44100, 48000, 7)
     a = np.concatenate([plain.process(frames), plain.flush()], axis=1)
 
-    sharded = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    sharded = BatchedResampler(S, C, 44100, 48000, 7,
                                mesh=mesh)
     b = np.concatenate([sharded.process(frames), sharded.flush()], axis=1)
     assert np.array_equal(a, b)
 
 
-def test_batched_mesh_sharded_pallas_interpret():
-    """The Pallas kernel under shard_map on an 8-device CPU mesh must match
-    the unsharded run (this is the real multi-chip code path: pallas_call
-    is an opaque custom call the SPMD partitioner cannot split)."""
+def test_batched_mesh_sharded_fixed_matches_unsharded():
+    """The FIXED_POINT dense step (exact int8-plane dots) under shard_map
+    on an 8-device CPU mesh is bit-equal to the unsharded run, and both
+    equal the exact host fixed loops."""
     devs = jax.devices()
     if len(devs) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -203,14 +145,16 @@ def test_batched_mesh_sharded_pallas_interpret():
     S, C = 8, 2
     frames = _random_frames(S, 6000, C, seed=11)
 
-    plain = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                             pallas_interpret=True)
+    plain = BatchedResampler(S, C, 44100, 48000, 7, fixed_point=True)
     a = np.concatenate([plain.process(frames), plain.flush()], axis=1)
 
-    sharded = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                               pallas_interpret=True, mesh=mesh)
+    sharded = BatchedResampler(S, C, 44100, 48000, 7, fixed_point=True,
+                               mesh=mesh)
     b = np.concatenate([sharded.process(frames), sharded.flush()], axis=1)
     assert np.array_equal(a, b)
+    core = ResamplerCore(C, 44100, 48000, 44100, 48000, 7, fixed_point=True)
+    ref = core.process_interleaved(frames[0], 10**9)
+    assert np.array_equal(a[0, :len(ref)], ref)
 
 
 @pytest.mark.parametrize("fixed", [False, True])
@@ -233,12 +177,12 @@ def test_batched_mesh_sharded_gather_geometry(fixed):
     S, C = 8, 1
     frames = _random_frames(S, 46000, C, seed=13)
 
-    plain = BatchedResampler(S, C, 44100, 44101, 1, use_pallas=True,
+    plain = BatchedResampler(S, C, 44100, 44101, 1,
                              target_chunk_frames=44100, fixed_point=fixed)
     assert plain.bspec.kernel == "gather"
     a = np.concatenate([plain.process(frames), plain.flush()], axis=1)
 
-    sharded = BatchedResampler(S, C, 44100, 44101, 1, use_pallas=True,
+    sharded = BatchedResampler(S, C, 44100, 44101, 1,
                                target_chunk_frames=44100,
                                fixed_point=fixed, mesh=mesh)
     assert sharded.bspec.kernel == "gather"
@@ -250,112 +194,54 @@ def test_batched_mesh_sharded_gather_geometry(fixed):
 
 
 @pytest.mark.parametrize("in_rate,out_rate,quality", [
-    (8000, 48000, 2),     # 1/6 integer upsample (small S, large back)
-    (48000, 8000, 4),     # 6/1 decimation (huge K)
-    (32000, 44100, 8),    # 320/441 large-P interpolated
+    (8000, 48000, 2),     # 1/6 integer upsample (group > 1)
+    (48000, 8000, 4),     # 6/1 decimation (6x longer filter)
+    (32000, 44100, 8),    # 320/441 large-den interpolated
 ])
-def test_batched_pallas_interpret_extreme_ratios(in_rate, out_rate, quality):
-    """The tiled kernel's geometry machinery (look-back, views, origin
-    shift) across ratio extremes, interpret mode vs the dense engine."""
+def test_batched_extreme_ratios(in_rate, out_rate, quality):
+    """The dense geometry (group factor, patch views, padded weights)
+    across ratio extremes, engine vs the single-stream core."""
     S, C = 2, 1
     frames = _random_frames(S, 6000, C, seed=quality)
-    ref_eng = BatchedResampler(S, C, in_rate, out_rate, quality,
-                               target_chunk_frames=1024, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
     eng = BatchedResampler(S, C, in_rate, out_rate, quality,
-                           target_chunk_frames=1024, use_pallas=True,
-                           pallas_interpret=True)
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
+                           target_chunk_frames=1024)
+    _assert_matches_core(eng, frames, in_rate, out_rate, quality)
 
 
-def test_batched_pallas_streamed_weights():
-    """Large-P configs (48k->44.1k q10, P=147) use the streamed-weight v4
-    kernel; interpret mode vs the dense engine."""
+def test_batched_long_cycle_q10():
+    """48k->44.1k q10 (den 147, a 256-tap double-accumulator filter over a
+    147-phase weight cycle) through the dense step, engine vs core."""
     S, C = 2, 1
     frames = _random_frames(S, 45000, C, seed=13)
-    ref_eng = BatchedResampler(S, C, 48000, 44100, 10, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-    eng = BatchedResampler(S, C, 48000, 44100, 10, use_pallas=True,
-                           pallas_interpret=True)
-    assert eng.bspec.kernel == "streamed"
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
+    eng = BatchedResampler(S, C, 48000, 44100, 10)
+    assert eng.bspec.kernel == "dense"
+    _assert_matches_core(eng, frames, 48000, 44100, 10)
 
 
 def test_small_quantum_history_carry():
     """Launch quantum smaller than the history window (n_in < hist_rows):
     the next history must splice surviving old history with the new chunk,
-    not slice past the chunk's start (round-1 advisory: silent filter-state
-    corruption, ~27k LSB error)."""
+    not slice past the chunk's start (silent filter-state corruption,
+    ~27k LSB error, when it did)."""
     S, C = 1, 1
     frames = _random_frames(S, 4000, C, seed=21)
-    ref_eng = BatchedResampler(S, C, 100, 44100, 10, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-
-    eng = BatchedResampler(S, C, 100, 44100, 10, target_chunk_frames=128,
-                           use_pallas=True, pallas_interpret=True)
+    eng = BatchedResampler(S, C, 100, 44100, 10, target_chunk_frames=128)
     assert eng.bspec.in_per_launch < eng._step.hist_rows  # the bug trigger
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
+    _assert_matches_core(eng, frames, 100, 44100, 10)
 
 
-def test_small_quantum_history_carry_tiled():
-    """Same n_in < hist_rows trigger on the VMEM-tiled kernel (small
-    target_chunk_frames with a long Q10 filter)."""
+def test_small_quantum_history_carry_upsample():
+    """Same n_in < hist_rows trigger at a 1/64 upsample with a long Q10
+    filter: the minimum launch quantum (16 frames) is far below the
+    255-row history window."""
     S, C = 2, 1
-    # 1/64 upsample: S = 2 inputs per weight period, so the minimum launch
-    # quantum (40 frames) is far below the Q10 history window (256 rows)
     frames = _random_frames(S, 600, C, seed=22)
-    ref_eng = BatchedResampler(S, C, 1000, 64000, 10, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-
-    eng = BatchedResampler(S, C, 1000, 64000, 10, target_chunk_frames=16,
-                           use_pallas=True, pallas_interpret=True)
-    assert eng.bspec.kernel == "tiled"
+    eng = BatchedResampler(S, C, 1000, 64000, 10, target_chunk_frames=16)
     assert eng.bspec.in_per_launch < eng._step.hist_rows
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
+    _assert_matches_core(eng, frames, 1000, 64000, 10)
 
 
-def test_batched_split5_scheme_interpret():
-    """split5 (5 explicit bf16 MXU passes, the real-TPU tiled default) must
-    hold the same oracle-pinned LSB bound as HIGHEST; interpret mode vs the
-    dense engine (see experiments/split_accuracy.py for the error model)."""
-    S, C = 2, 1
-    frames = _random_frames(S, 4000, C, seed=31)
-    ref_eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-
-    eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                           pallas_interpret=True, scheme="split5")
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
-
-
-def test_batched_split5_streamed_interpret():
-    """split5 on the streamed-weight v4 kernel (the real-TPU default for
-    large-P configs) holds the oracle-pinned LSB bound."""
-    S, C = 2, 1
-    frames = _random_frames(S, 30000, C, seed=33)
-    ref_eng = BatchedResampler(S, C, 48000, 44100, 10, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-
-    eng = BatchedResampler(S, C, 48000, 44100, 10, use_pallas=True,
-                           pallas_interpret=True, scheme="split5")
-    assert eng.bspec.kernel == "streamed"
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
-
-
-def _skip_anytime_oracle(oracle, tmp_path, use_pallas, in_rate, out_rate,
-                         q, tag):
+def _skip_anytime_oracle(oracle, tmp_path, in_rate, out_rate, q, tag):
     """Engine vs the oracle through the same chunk schedule with a
     mid-stream skip_zeros.  Only bind-free ratios qualify: the JS capacity
     rule floor(ceil(2n*r)/2) can fall one frame short of the producible
@@ -377,16 +263,14 @@ def _skip_anytime_oracle(oracle, tmp_path, use_pallas, in_rate, out_rate,
                     str(q), str(inp), str(outp), str(sched), "1"],
                    check=True)
     want = np.fromfile(outp, dtype=np.int16)
-    got = _engine_skip_run(pcm, use_pallas, in_rate, out_rate, q)
+    got = _engine_skip_run(pcm, in_rate, out_rate, q)
     m = min(got.shape[0], want.shape[0])
     assert abs(got.shape[0] - want.shape[0]) <= 1, (got.shape, want.shape)
     assert_lsb_close(got[:m], want[:m])
 
 
-def _engine_skip_run(pcm, use_pallas, in_rate, out_rate, q, chunk_a=7000):
-    eng = BatchedResampler(1, 1, in_rate, out_rate, q,
-                           use_pallas=use_pallas,
-                           pallas_interpret=use_pallas)
+def _engine_skip_run(pcm, in_rate, out_rate, q, chunk_a=7000):
+    eng = BatchedResampler(1, 1, in_rate, out_rate, q)
     frames = pcm.reshape(1, -1, 1)
     parts = [eng.process(frames[:, :chunk_a])]
     eng.skip_zeros()                      # staged remainder drains exactly
@@ -409,24 +293,28 @@ def test_batched_skip_zeros_anytime(oracle, tmp_path):
     continues — oracle-pinned on a bind-free ratio, core-pinned (the core
     mirrors C's last_sample = filt_len/2 line-for-line and is itself
     oracle-golden) on fractional ratios that exercise the f0 rebuild."""
-    _skip_anytime_oracle(oracle, tmp_path, False, 24000, 48000, 5, "a")
+    _skip_anytime_oracle(oracle, tmp_path, 24000, 48000, 5, "a")
     rng = np.random.default_rng(43)
     pcm = (rng.integers(-32768, 32768, size=30000) // 2).astype(np.int16)
     for (ir, orr, q) in [(44100, 48000, 7), (44100, 24000, 5)]:
-        got = _engine_skip_run(pcm, False, ir, orr, q)
+        got = _engine_skip_run(pcm, ir, orr, q)
         want = _core_skip_run(pcm, ir, orr, q)
         m = min(got.shape[0], want.shape[0])
         assert abs(got.shape[0] - want.shape[0]) <= 1
         assert_lsb_close(got[:m], want[:m])
 
 
-def test_batched_skip_zeros_anytime_pallas_interpret():
-    """Same through the tiled Pallas kernel: the mid-stream f0 rebuild must
-    produce correct phase weights (interpret mode)."""
+@pytest.mark.parametrize("in_rate,out_rate,quality", [
+    (44100, 48000, 7), (44100, 24000, 5)])
+def test_batched_skip_zeros_anytime_matches_core(in_rate, out_rate,
+                                                 quality):
+    """Mid-stream skip_zeros on fractional ratios: the drained remainder
+    rebuilds the step at a new phase f0, whose weights must be right —
+    engine vs the single-stream core driven through the same calls."""
     rng = np.random.default_rng(44)
     pcm = (rng.integers(-32768, 32768, size=30000) // 2).astype(np.int16)
-    got = _engine_skip_run(pcm, True, 44100, 48000, 7)
-    want = _core_skip_run(pcm, 44100, 48000, 7)
+    got = _engine_skip_run(pcm, in_rate, out_rate, quality)
+    want = _core_skip_run(pcm, in_rate, out_rate, quality)
     m = min(got.shape[0], want.shape[0])
     assert abs(got.shape[0] - want.shape[0]) <= 1
     assert_lsb_close(got[:m], want[:m])
@@ -440,145 +328,74 @@ def test_batched_accepts_strided_views():
     view = wide[:, :, ::2]                           # channels 0 and 2
     assert not view.flags["C_CONTIGUOUS"]
 
-    a_eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    a_eng = BatchedResampler(S, C, 44100, 48000, 7)
     a = np.concatenate([a_eng.process(view), a_eng.flush()], axis=1)
-    b_eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    b_eng = BatchedResampler(S, C, 44100, 48000, 7)
     b = np.concatenate([b_eng.process(np.ascontiguousarray(view)),
                         b_eng.flush()], axis=1)
     assert np.array_equal(a, b)
 
 
-def test_batched_int8_scheme_interpret():
-    """int8 digit-plane scheme (6 int8 MXU passes, certificate-gated; the
-    real-TPU auto choice for short/medium filters) holds the oracle-pinned
-    LSB bound; interpret mode vs the dense engine."""
-    for (ir, orr, q) in [(44100, 48000, 7), (24000, 48000, 5)]:
-        S, C = 2, 1
-        frames = _random_frames(S, 4000, C, seed=61 + q)
-        ref_eng = BatchedResampler(S, C, ir, orr, q, use_pallas=False)
-        ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()],
-                             axis=1)
-        eng = BatchedResampler(S, C, ir, orr, q, use_pallas=True,
-                               pallas_interpret=True, scheme="int8")
-        got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-        assert got.shape == ref.shape
-        assert_lsb_close(got.ravel(), ref.ravel())
-
-
-def test_int8_certificate_gate():
-    """int8_weights_auto must refuse (return None) when even 4 digits
-    cannot certify the bound — e.g. a pathological huge-L1 filter — and
-    auto-escalate real long filters to 4 digits."""
-    rng = np.random.default_rng(0)
-    # pathological: enormous L1 norm makes the quantization sum blow up
-    w_bad = (rng.standard_normal((2, 4096, 128)) * 100).astype(np.float32)
-    assert pf.int8_weights_auto(w_bad, 0.20) is None
-    # real long filter escalates from 3 to 4 digits
-    spec = fd.design_filter(1, 2, 10)
-    w = ph.build_phase_tiled_weights(spec.phase_table, 1, 2, 0).w
-    assert pf.int8_weights(w, digits=3)[3] > 0.20
-    got = pf.int8_weights_auto(w, 0.20)
-    assert got is not None and got[0].shape[0] == 4
-
-
-def test_batched_int8x4_long_filters_interpret():
-    """4-digit int8 planes (8 passes, certificate ~0.017 LSB) serve the
-    long-filter configs that gate out of 3 digits — both the tiled q10 and
-    the streamed-weight kernel."""
-    S, C = 2, 1
-    # tiled, q10 (D=4 auto-escalation)
-    frames = _random_frames(S, 4000, C, seed=71)
-    ref_eng = BatchedResampler(S, C, 24000, 48000, 10, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-    eng = BatchedResampler(S, C, 24000, 48000, 10, use_pallas=True,
-                           pallas_interpret=True, scheme="int8")
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
-
-    # streamed v4, q10
-    frames = _random_frames(S, 30000, C, seed=72)
-    ref_eng = BatchedResampler(S, C, 48000, 44100, 10, use_pallas=False)
-    ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()], axis=1)
-    eng = BatchedResampler(S, C, 48000, 44100, 10, use_pallas=True,
-                           pallas_interpret=True, scheme="int8")
-    assert eng.bspec.kernel == "streamed"
-    got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-    assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
-
-
-def test_batched_mesh_sharded_int8_interpret():
-    """The int8 scheme's tuple weight operand (planes, bias) must ride
-    shard_map's replicated spec correctly — the production TPU default is
-    int8 + optional mesh."""
+@pytest.mark.parametrize("in_rate,out_rate,quality", [
+    (24000, 48000, 5),    # direct path, group > 1
+    (48000, 44100, 10),   # long weight cycle, double accumulator
+])
+def test_batched_mesh_sharded_families(in_rate, out_rate, quality):
+    """Other dense geometries under an 8-device mesh equal the unsharded
+    run (lanes are share-nothing; the weights ride replicated)."""
     devs = jax.devices()
     if len(devs) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = jax.sharding.Mesh(np.array(devs[:8]), ("streams",))
     S, C = 8, 1
-    frames = _random_frames(S, 6000, C, seed=81)
+    frames = _random_frames(S, 12000, C, seed=81)
 
-    plain = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                             pallas_interpret=True, scheme="int8")
+    plain = BatchedResampler(S, C, in_rate, out_rate, quality)
     a = np.concatenate([plain.process(frames), plain.flush()], axis=1)
-
-    sharded = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                               pallas_interpret=True, scheme="int8",
-                               mesh=mesh)
+    sharded = BatchedResampler(S, C, in_rate, out_rate, quality, mesh=mesh)
     b = np.concatenate([sharded.process(frames), sharded.flush()], axis=1)
     assert np.array_equal(a, b)
 
 
-def test_batched_random_config_fuzz_interpret():
-    """Seeded sweep over random (ratio, quality) configs: the Pallas
-    engine (auto geometry, explicit per-config scheme) must match the
-    dense reference engine on every one — hardens the tiled/streamed
-    geometry machinery (look-back, views, origin shift, digit escalation)
-    beyond the hand-picked matrix."""
-    rng = np.random.default_rng(2024)
+@pytest.mark.parametrize("fixed", [False, True])
+def test_batched_random_config_fuzz(fixed):
+    """Seeded sweep over random (ratio, quality) configs: the batched
+    engine must match the single-stream core on every one — hardens the
+    dense geometry machinery (group factor, patch views, weight padding,
+    phase origin) beyond the hand-picked matrix."""
+    rng = np.random.default_rng(2024 + fixed)
     rates = [8000, 11025, 16000, 22050, 24000, 32000, 44100, 48000, 88200]
-    tried = 0
-    while tried < 8:
-        ir, orr = rng.choice(rates, size=2, replace=False)
+    for tried in range(8):
+        ir, orr = (int(r) for r in rng.choice(rates, size=2,
+                                              replace=False))
         q = int(rng.integers(0, 11))
         S, C = 2, 1
         n = 12000 if max(ir, orr) / min(ir, orr) < 4 else 30000
         frames = _random_frames(S, n, C, seed=tried)
-        ref_eng = BatchedResampler(S, C, int(ir), int(orr), q,
-                                   use_pallas=False)
-        ref = np.concatenate([ref_eng.process(frames), ref_eng.flush()],
-                             axis=1)
-        scheme = ("int8" if pf.int8_weights_auto(
-            ref_eng.spec.phase_table[None].transpose(0, 2, 1), 0.20)
-            is not None else "split5")
-        try:
-            eng = BatchedResampler(S, C, int(ir), int(orr), q,
-                                   use_pallas=True, pallas_interpret=True,
-                                   scheme=scheme)
-        except Exception:
-            # certificate refusal: fall back like auto would
-            eng = BatchedResampler(S, C, int(ir), int(orr), q,
-                                   use_pallas=True, pallas_interpret=True,
-                                   scheme="split5")
+        eng = BatchedResampler(S, C, ir, orr, q, fixed_point=fixed)
         got = np.concatenate([eng.process(frames), eng.flush()], axis=1)
-        assert got.shape == ref.shape, (ir, orr, q, got.shape, ref.shape)
-        assert_lsb_close(got.ravel(), ref.ravel())
-        tried += 1
+        for s in range(S):
+            core = ResamplerCore(C, ir, orr, ir, orr, q, fixed_point=fixed)
+            ref = core.process_interleaved(frames[s], 10**9)
+            m = min(got.shape[1], len(ref))
+            assert abs(got.shape[1] - len(ref)) <= 1, (ir, orr, q)
+            if fixed:
+                assert np.array_equal(got[s, :m], ref[:m]), (ir, orr, q)
+            else:
+                assert_lsb_close(got[s, :m].ravel(), ref[:m].ravel())
 
 
 @pytest.mark.parametrize("fixed", [False, True])
 def test_batched_gather_pathological_ratio(fixed):
     """Huge-den coprime ratios (44100->44101) must not build GB weight
     matrices: the engine falls to the weight-free gather geometry (the
-    tiled-weight probe is skipped via a size ESTIMATE).  Launch quantum is
+    dense weight size is computed, never built).  Launch quantum is
     one num-block (~1 s of audio — inherent to f0-invariant batching at
     such ratios)."""
     S, C, n = 2, 1, 95000
     frames = _random_frames(S, n, C, seed=5)
     eng = BatchedResampler(S, C, 44100, 44101, 1,
-                           target_chunk_frames=44100, use_pallas=True,
-                           fixed_point=fixed)
+                           target_chunk_frames=44100, fixed_point=fixed)
     assert eng.bspec.kernel == "gather"
     y = np.concatenate([eng.process(frames), eng.flush()], axis=1)
     from speex_resampler_tpu.core.resampler import ResamplerCore
@@ -594,61 +411,53 @@ def test_batched_gather_pathological_ratio(fixed):
             assert_lsb_close(y[s, :m].ravel(), ref[:m].ravel())
 
 
-def test_batched_mesh_sharded_streamed_int8_interpret(monkeypatch):
-    """Streamed-weight v4 kernel (the production path for the 48k<->44.1k
-    family, resample.c:438-559 at fleet scale) under shard_map on an
-    8-device mesh, int8 scheme: sharded == unsharded.  Closes the round-2
-    gap where no test combined kernel=="streamed" with mesh=.
-
-    The natural streamed configs (P=147, 20480-frame quanta) cost ~10 min
-    under 8-way interpret emulation, so the flagship (P=20) is FORCED onto
-    v4 by zeroing the tiled-residency threshold — the identical kernel and
-    mesh plumbing at a fraction of the grid size."""
-    import speex_resampler_tpu.parallel.batch as batch_mod
-    monkeypatch.setattr(batch_mod, "_MAX_TILED_WEIGHT_BYTES", 0)
+def test_batched_mesh_sharded_flagship_quantum():
+    """The flagship launch quantum (9408 in-frames -> 10240 out-frames)
+    under an 8-device mesh: sharded output equals the unsharded run and
+    the lane axis stays sharded on the step's outputs."""
     devs = jax.devices()
     if len(devs) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = jax.sharding.Mesh(np.array(devs[:8]), ("streams",))
     S, C = 8, 1
-    frames = _random_frames(S, 6000, C, seed=91)
+    frames = _random_frames(S, 2 * 9408 + 100, C, seed=91)
 
-    plain = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                             pallas_interpret=True, scheme="int8")
-    assert plain.bspec.kernel == "streamed"
+    plain = BatchedResampler(S, C, 44100, 48000, 7, target_chunk_frames=9408)
+    assert plain.in_frames_per_launch == 9408
     a = np.concatenate([plain.process(frames), plain.flush()], axis=1)
-
-    sharded = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                               pallas_interpret=True, scheme="int8",
-                               mesh=mesh)
-    assert sharded.bspec.kernel == "streamed"
+    sharded = BatchedResampler(S, C, 44100, 48000, 7,
+                               target_chunk_frames=9408, mesh=mesh)
     b = np.concatenate([sharded.process(frames), sharded.flush()], axis=1)
     assert np.array_equal(a, b)
+    x = sharded._on_lanes(jnp.zeros((sharded._step.chunk_rows, S * C),
+                                    jnp.int16))
+    h2, y = sharded._step.fn(sharded._hist, x, sharded._w)
+    assert len(y.sharding.device_set) == 8
+    assert len(h2.sharding.device_set) == 8
 
 
 def test_step_cache_reuses_identical_config():
     """make_batched_step memoizes: an identical (design, geometry, knobs)
     request returns the SAME BatchedStep — a MultiFleet bucket rebuilt
     after idle-LRU eviction must not pay a second XLA trace/compile.
-    Different geometry or scheme must miss."""
+    Different geometry or layout must miss."""
     import speex_resampler_tpu.parallel.batch as batch_mod
 
     batch_mod.clear_step_cache()
     spec = fd.design_filter(147, 160, 7)
-    bspec = batch_mod._launch_geometry(spec, 4096, use_pallas=False)
-    s1 = batch_mod.make_batched_step(spec, bspec, use_pallas=False)
+    bspec = batch_mod._launch_geometry(spec, 4096)
+    s1 = batch_mod.make_batched_step(spec, bspec)
     # a FRESH spec object with the same design identity still hits
     spec2 = fd.design_filter(147, 160, 7)
-    s2 = batch_mod.make_batched_step(spec2, bspec, use_pallas=False)
+    s2 = batch_mod.make_batched_step(spec2, bspec)
     assert s1 is s2
     # different launch geometry misses
-    bspec3 = batch_mod._launch_geometry(spec, 8192, use_pallas=False)
+    bspec3 = batch_mod._launch_geometry(spec, 8192)
     if bspec3 != bspec:
-        s3 = batch_mod.make_batched_step(spec, bspec3, use_pallas=False)
+        s3 = batch_mod.make_batched_step(spec, bspec3)
         assert s3 is not s1
     # lane-major trace is a different step
-    s4 = batch_mod.make_batched_step(spec, bspec, use_pallas=False,
-                                     lane_major=True)
+    s4 = batch_mod.make_batched_step(spec, bspec, lane_major=True)
     assert s4 is not s1
     # the memo is bounded: counts and weight bytes both enforce eviction
     with batch_mod._STEP_CACHE_LOCK:
@@ -666,16 +475,16 @@ def test_step_cache_engines_share_step_and_stay_independent():
     S, C = 3, 2
     fa = _random_frames(S, 5000, C, seed=17)
     fb = _random_frames(S, 5000, C, seed=18)
-    ea = BatchedResampler(S, C, 24000, 48000, 5, use_pallas=False)
-    eb = BatchedResampler(S, C, 24000, 48000, 5, use_pallas=False)
+    ea = BatchedResampler(S, C, 24000, 48000, 5)
+    eb = BatchedResampler(S, C, 24000, 48000, 5)
     assert ea._step is eb._step
     ya = np.concatenate([ea.process(fa), ea.flush()], axis=1)
     yb = np.concatenate([eb.process(fb), eb.flush()], axis=1)
     # independent single-engine runs on fresh engines agree exactly
     batch_mod.clear_step_cache()
-    ea2 = BatchedResampler(S, C, 24000, 48000, 5, use_pallas=False)
+    ea2 = BatchedResampler(S, C, 24000, 48000, 5)
     ya2 = np.concatenate([ea2.process(fa), ea2.flush()], axis=1)
-    eb2 = BatchedResampler(S, C, 24000, 48000, 5, use_pallas=False)
+    eb2 = BatchedResampler(S, C, 24000, 48000, 5)
     yb2 = np.concatenate([eb2.process(fb), eb2.flush()], axis=1)
     assert np.array_equal(ya, ya2)
     assert np.array_equal(yb, yb2)

@@ -98,14 +98,14 @@ def test_batched_checkpoint_roundtrip():
     frames = (rng.integers(-32768, 32768, size=(S, 8000, C)) // 2).astype(
         np.int16)
 
-    ref = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    ref = BatchedResampler(S, C, 44100, 48000, 7)
     full = np.concatenate([ref.process(frames), ref.flush()], axis=1)
 
-    a = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    a = BatchedResampler(S, C, 44100, 48000, 7)
     out1 = a.process(frames[:, :3000])
     blob = pickle.dumps(a.state_dict())
 
-    b = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    b = BatchedResampler(S, C, 44100, 48000, 7)
     b.load_state_dict(pickle.loads(blob))
     out2 = b.process(frames[:, 3000:])
     out3 = b.flush()
@@ -121,16 +121,14 @@ def test_fleet_checkpoint_roundtrip():
     frames = (rng.integers(-32768, 32768, size=(S, 7000, C)) // 2).astype(
         np.int16)
 
-    ref = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=1024,
-                         use_pallas=False)
+    ref = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=1024)
     for s in range(S):
         ref.push(s, frames[s])
     ref.poll()
     ref.flush()
     full = [ref.pull(s) for s in range(S)]
 
-    a = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=1024,
-                       use_pallas=False)
+    a = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=1024)
     for s in range(S):
         raw = frames[s, :4000].astype("<i2").tobytes()
         a.push_bytes(s, raw[:5555])       # unaligned split -> carry bytes
@@ -138,8 +136,7 @@ def test_fleet_checkpoint_roundtrip():
     a.poll()
     blob = pickle.dumps(a.state_dict())
 
-    b = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=1024,
-                       use_pallas=False)
+    b = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=1024)
     b.load_state_dict(pickle.loads(blob))
     for s in range(S):
         b.push_bytes(s, frames[s, 4000:].astype("<i2").tobytes())
@@ -156,8 +153,7 @@ def test_fleet_checkpoint_preserves_active_flags_and_config():
     from speex_resampler_tpu.utils.errors import ResamplerError
 
     S, C = 4, 1
-    f = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=256,
-                       use_pallas=False)
+    f = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=256)
     q = f.bspec.in_per_launch
     f.set_slot_active(1, False)
     f.set_slot_active(3, False)
@@ -166,15 +162,13 @@ def test_fleet_checkpoint_preserves_active_flags_and_config():
         f.push(s, (rng.integers(-1000, 1000, size=(q, C))).astype(np.int16))
     state = f.state_dict()
 
-    g = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=256,
-                       use_pallas=False)
+    g = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=256)
     g.load_state_dict(state)
     # active slots 0 and 2 both hold a full quantum: must be ready
     assert g.poll() == 1
     assert g.pending(0) > 0 and g.pending(2) > 0
 
-    bad = FleetResampler(S, C, 24000, 44100, 5, target_chunk_frames=256,
-                         use_pallas=False)
+    bad = FleetResampler(S, C, 24000, 44100, 5, target_chunk_frames=256)
     with pytest.raises(ResamplerError):
         bad.load_state_dict(state)
 
@@ -208,16 +202,16 @@ def test_multifleet_checkpoint_roundtrip():
         return {s: mf.pull(s) for s in ("u", "v")}
 
     ref_mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                        target_chunk_frames=512, use_pallas=False)
+                        target_chunk_frames=512)
     want = drive(ref_mf)
 
     mf1 = MultiFleet(channels=1, capacity_per_bucket=2,
-                     target_chunk_frames=512, use_pallas=False)
+                     target_chunk_frames=512)
     drive(mf1, until_snapshot_only=True)
     blob = pickle.dumps(mf1.state_dict())
 
     mf2 = MultiFleet(channels=1, capacity_per_bucket=2,
-                     target_chunk_frames=512, use_pallas=False)
+                     target_chunk_frames=512)
     mf2.load_state_dict(pickle.loads(blob))
     got = finish(mf2)
     for s in ("u", "v"):
@@ -226,46 +220,44 @@ def test_multifleet_checkpoint_roundtrip():
         assert np.array_equal(got[s], want[s]), s
 
 
-@pytest.mark.parametrize("direction", ["shrink", "grow"])
-def test_cross_kernel_hist_geometry_restore(direction):
-    """A checkpoint taken under one kernel family restores into an engine
-    that resolved a DIFFERENT family (the docs/serving.md failover path:
-    rebuild on a healthy device, which may pick another kernel).  Hist
-    row counts differ (tiled pads filt_len-1 up to the 16-row sublane
-    tile; dense uses filt_len-1 exactly); _adapt_hist re-layouts the
-    valid history, so the resumed run is bit-identical to an
+def _legacy_hist(hist, filt_len, fill):
+    """Re-layout a checkpointed history the way older engines wrote it:
+    filt_len-1 valid rows padded in front to a 16-row multiple.  The pad
+    rows are zeros or, for ``fill="garbage"``, arbitrary samples that a
+    restore must never read."""
+    hist = np.asarray(hist)
+    rows = -(-(filt_len - 1) // 16) * 16
+    assert rows > hist.shape[0], "needs extra alignment rows"
+    pad = np.zeros((rows - hist.shape[0], hist.shape[1]), np.int16)
+    if fill == "garbage":
+        pad[:] = 12345
+    return np.concatenate([pad, hist], axis=0)
+
+
+@pytest.mark.parametrize("fill", ["zeros", "garbage"])
+def test_legacy_hist_geometry_restore(fill):
+    """A checkpoint whose history carries extra leading alignment rows
+    (written by older engines, whose history was filt_len-1 rounded up to
+    16 rows) restores into today's engine: _adapt_hist keeps the trailing
+    filt_len-1 valid rows, so the resumed run is bit-identical to an
     uninterrupted one.  Before the adapter, the mis-shaped hist was
     accepted and the first dispatch failed INSIDE the degradation guard
-    -> permanent silent zero output.  FIXED universe: bit-exact across
-    kernel families (float kernels may tie-break ±1 LSB differently).
-
-    Both directions: "shrink" (tiled checkpoint -> dense engine, the
-    adapter trims the alignment rows) and "grow" (dense -> tiled, the
-    adapter zero-fills leading alignment rows the tiled kernel must
-    treat as don't-care — the riskier re-layout)."""
+    -> permanent silent zero output.  FIXED universe: bit-exact."""
     S, C, n = 2, 1, 3200
     rng = np.random.default_rng(11)
     x = (rng.integers(-32768, 32768, size=(S, n, C)) // 2).astype(np.int16)
 
-    def dense():
-        return BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
-                                fixed_point=True)
+    def engine():
+        return BatchedResampler(S, C, 44100, 48000, 7, fixed_point=True)
 
-    def tiled():
-        return BatchedResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                                pallas_interpret=True, fixed_point=True)
-
-    a, b = (tiled(), dense()) if direction == "shrink" else \
-        (dense(), tiled())
-    assert a._step.hist_rows != b._step.hist_rows, \
-        "geometries coincide; test needs distinct hist layouts"
-
-    ref = dense()
+    ref = engine()
     full = np.concatenate([ref.process(x), ref.flush()], axis=1)
 
+    a, b = engine(), engine()
     y1 = a.process(x[:, :2000])
-    blob = pickle.dumps(a.state_dict())
-    b.load_state_dict(pickle.loads(blob))
+    sd = a.state_dict()
+    sd["hist"] = _legacy_hist(sd["hist"], a.spec.filt_len, fill)
+    b.load_state_dict(pickle.loads(pickle.dumps(sd)))
     y2 = np.concatenate([b.process(x[:, 2000:]), b.flush()], axis=1)
     resumed = np.concatenate([y1, y2], axis=1)
     assert resumed.shape == full.shape
@@ -277,10 +269,10 @@ def test_restore_rejects_wrong_hist_columns():
     raise INVALID_ARG up front, never enter the dispatch path."""
     from speex_resampler_tpu.utils.errors import ResamplerError
 
-    a = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=False)
+    a = BatchedResampler(2, 1, 44100, 48000, 7)
     sd = a.state_dict()
     sd["hist"] = np.zeros((np.asarray(sd["hist"]).shape[0], 7), np.int16)
-    b = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=False)
+    b = BatchedResampler(2, 1, 44100, 48000, 7)
     with pytest.raises(ResamplerError):
         b.load_state_dict(sd)
     # too few rows to contain filt_len-1 valid history: also rejected
@@ -290,19 +282,17 @@ def test_restore_rejects_wrong_hist_columns():
         b.load_state_dict(sd2)
 
 
-def test_fleet_cross_kernel_restore():
-    """Same cross-geometry restore at the fleet level: checkpoint a
-    tiled-kernel fleet, restore into a dense-kernel fleet, outputs match
-    an uninterrupted dense fleet.  Run in the FIXED universe, which is
-    bit-exact across kernel families (float kernels are each ≤1 LSB vs
-    the oracle but may tie-break differently from each other)."""
+def test_fleet_legacy_hist_restore():
+    """Same legacy-geometry restore at the fleet level: checkpoint a fleet,
+    re-layout its history with garbage-filled leading alignment rows,
+    restore into a fresh fleet; total output equals an uninterrupted
+    fleet.  FIXED universe: bit-exact."""
     S, C = 2, 1
-    a = FleetResampler(S, C, 44100, 48000, 7, use_pallas=True,
-                       pallas_interpret=True, target_chunk_frames=512,
+    a = FleetResampler(S, C, 44100, 48000, 7, target_chunk_frames=512,
                        fixed_point=True)
-    # head must exceed the tiled fleet's launch quantum so a REAL launch
-    # populates the history before the checkpoint (otherwise the adapter
-    # only ever sees zeros)
+    # head must exceed the launch quantum so a REAL launch populates the
+    # history before the checkpoint (otherwise the adapter only ever sees
+    # zeros)
     head = 2 * a.bspec.in_per_launch
     rng = np.random.default_rng(13)
     x = [(rng.integers(-32768, 32768, size=(head + 1100, C)) // 2)
@@ -315,7 +305,7 @@ def test_fleet_cross_kernel_restore():
         fl.flush()
         return [fl.pull(s) for s in range(S)]
 
-    ref = FleetResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    ref = FleetResampler(S, C, 44100, 48000, 7,
                          target_chunk_frames=512, fixed_point=True)
     for s in range(S):
         ref.push(s, x[s][:head])
@@ -328,16 +318,16 @@ def test_fleet_cross_kernel_restore():
     a.poll()
     got_head = [a.pull(s) for s in range(S)]
     assert min(len(h) for h in got_head) > 0, "no launch before checkpoint"
-    blob = pickle.dumps(a.state_dict())
+    sd = a.state_dict()
+    sd["hist"] = _legacy_hist(sd["hist"], a.spec.filt_len, "garbage")
+    blob = pickle.dumps(sd)
 
-    b = FleetResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    b = FleetResampler(S, C, 44100, 48000, 7,
                        target_chunk_frames=512, fixed_point=True)
-    assert a._step.hist_rows != b._step.hist_rows
     b.load_state_dict(pickle.loads(blob))
     got_tail = drive_tail(b)
 
-    # launch quanta differ between the two geometries, so the head/tail
-    # SPLIT differs; the checkpoint contract is total-output equality
+    # the checkpoint contract is total-output equality
     for s in range(S):
         got = np.concatenate([got_head[s], got_tail[s]])
         want = np.concatenate([want_head[s], want_tail[s]])

@@ -35,7 +35,7 @@ def _poison_dispatch(eng):
 
 class _FailsOnReadback:
     """A fake dispatched result whose readback raises — the async failure
-    surface (XLA errors on CPU/TPU often surface at block_until_ready,
+    surface (XLA device errors often surface at block_until_ready,
     not at dispatch)."""
 
     def block_until_ready(self):
@@ -57,9 +57,9 @@ def _poison_readback(eng):
 def test_batched_degrades_with_exact_accounting(fail_mode):
     S, C = 2, 2
     frames = _random_frames(S, 9000, C, seed=3)
-    healthy = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    healthy = BatchedResampler(S, C, 44100, 48000, 7,
                                target_chunk_frames=1024)
-    eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    eng = BatchedResampler(S, C, 44100, 48000, 7,
                            target_chunk_frames=1024)
 
     a1 = healthy.process(frames[:, :4000])
@@ -93,9 +93,9 @@ def test_batched_degraded_mid_pipeline_counts():
     call: total output count still exact (healthy prefix + zero suffix)."""
     S, C = 1, 1
     frames = _random_frames(S, 40000, C, seed=9)
-    healthy = BatchedResampler(S, C, 24000, 48000, 5, use_pallas=False,
+    healthy = BatchedResampler(S, C, 24000, 48000, 5,
                                target_chunk_frames=512)
-    eng = BatchedResampler(S, C, 24000, 48000, 5, use_pallas=False,
+    eng = BatchedResampler(S, C, 24000, 48000, 5,
                            target_chunk_frames=512)
     q = eng.in_frames_per_launch
 
@@ -127,7 +127,7 @@ def test_batched_degraded_sticky_and_control_paths():
     reinstalls resampler_ptr)."""
     S, C = 1, 2
     frames = _random_frames(S, 6000, C, seed=13)
-    eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    eng = BatchedResampler(S, C, 44100, 48000, 7,
                            target_chunk_frames=1024)
     eng.process(frames)
     _poison_dispatch(eng)
@@ -144,7 +144,7 @@ def test_batched_degraded_sticky_and_control_paths():
     # checkpoint round-trip preserves the degraded mode and keeps serving
     state = eng.state_dict()
     assert state["degraded"]
-    eng2 = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    eng2 = BatchedResampler(S, C, 44100, 48000, 7,
                             target_chunk_frames=1024)
     eng2.load_state_dict(state)
     assert eng2.degraded
@@ -159,9 +159,9 @@ def test_fleet_degrades_mid_serving(fail_mode):
     push/pull stay usable."""
     S, C = 3, 2
     fleet = FleetResampler(S, C, 44100, 48000, 7,
-                           target_chunk_frames=1024, use_pallas=False)
+                           target_chunk_frames=1024)
     healthy = FleetResampler(S, C, 44100, 48000, 7,
-                             target_chunk_frames=1024, use_pallas=False)
+                             target_chunk_frames=1024)
     frames = _random_frames(S, 5000, C, seed=21)
 
     for s in range(S):
@@ -201,7 +201,7 @@ def test_fleet_degrades_mid_serving(fail_mode):
     state = fleet.state_dict()
     assert state["degraded"]
     f2 = FleetResampler(S, C, 44100, 48000, 7,
-                        target_chunk_frames=1024, use_pallas=False)
+                        target_chunk_frames=1024)
     f2.load_state_dict(state)
     assert f2.degraded
     with pytest.raises(ResamplerError):
@@ -210,7 +210,7 @@ def test_fleet_degrades_mid_serving(fail_mode):
     # a degraded snapshot taken MID-SERVING stays fully serviceable:
     # restoring it keeps draining the exact per-stream counts, as zeros
     f3 = FleetResampler(S, C, 44100, 48000, 7,
-                        target_chunk_frames=1024, use_pallas=False)
+                        target_chunk_frames=1024)
     f3.load_state_dict(mid_state)
     assert f3.degraded
     for s in range(S):
@@ -228,8 +228,7 @@ def test_multifleet_degraded_surface():
     """MultiFleet surfaces per-bucket degradation; a poisoned bucket keeps
     draining exact zero counts while healthy buckets stay bit-correct."""
     from speex_resampler_tpu.runtime.multifleet import MultiFleet
-    mf = MultiFleet(1, capacity_per_bucket=4, target_chunk_frames=1024,
-                    use_pallas=False)
+    mf = MultiFleet(1, capacity_per_bucket=4, target_chunk_frames=1024)
     mf.add_stream("a", 44100, 48000, 7)
     mf.add_stream("b", 24000, 48000, 5)
     frames = _random_frames(1, 4000, 1, seed=33)[0]
@@ -258,7 +257,7 @@ def test_fleet_healthy_checkpoint_into_degraded_fleet():
     array (round-3 review finding)."""
     S, C = 2, 1
     fleet = FleetResampler(S, C, 44100, 48000, 7,
-                           target_chunk_frames=1024, use_pallas=False)
+                           target_chunk_frames=1024)
     frames = _random_frames(S, 3000, C, seed=44)
     for s in range(S):
         fleet.push(s, frames[s])
@@ -289,7 +288,7 @@ def test_batched_flush_after_async_death_degrades():
     """A device failure surfacing only at a control-path readback
     (flush/skip_zeros reading the history) must degrade, not raise."""
     S, C = 1, 1
-    eng = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    eng = BatchedResampler(S, C, 44100, 48000, 7,
                            target_chunk_frames=1024)
     eng.process(_random_frames(S, 2000, C, seed=47))
 
@@ -303,3 +302,43 @@ def test_batched_flush_after_async_death_degrades():
     y = eng.flush()  # must not raise
     assert eng.degraded
     assert not y.any()
+
+
+def _uncompilable(real):
+    """make_batched_step whose step cannot be lowered (a shape error
+    inside the jitted function, the way a device compiler refusal would
+    surface at the first launch)."""
+    import jax
+
+    def make(spec, bspec, **kw):
+        step = real(spec, bspec, **kw)
+        return dataclasses.replace(
+            step, fn=jax.jit(lambda hist, x, w: (hist, hist @ hist)))
+    return make
+
+
+@pytest.mark.parametrize("front", ["batched", "fleet", "multifleet"])
+def test_step_that_fails_to_compile_raises_at_construction(front,
+                                                           monkeypatch):
+    """A step that fails to compile raises ResamplerError(ALLOC_FAILED)
+    from the engine's constructor — it must not degrade the engine into
+    permanent zero output at its first launch."""
+    import speex_resampler_tpu.parallel.batch as batch_mod
+    import speex_resampler_tpu.runtime.fleet as fleet_mod
+    from speex_resampler_tpu.runtime.multifleet import MultiFleet
+    from speex_resampler_tpu.utils.errors import ResamplerErrorCode
+    for mod in (batch_mod, fleet_mod):
+        monkeypatch.setattr(mod, "make_batched_step",
+                            _uncompilable(batch_mod.make_batched_step))
+    with pytest.raises(ResamplerError) as err:
+        if front == "batched":
+            BatchedResampler(2, 2, 44100, 48000, 7)
+        elif front == "fleet":
+            FleetResampler(2, 2, 44100, 48000, 7)
+        else:
+            mf = MultiFleet(channels=2, capacity_per_bucket=2)
+            try:
+                mf.add_stream("s", 44100, 48000, 7)
+            finally:
+                assert not mf._buckets    # no half-built bucket kept
+    assert err.value.code == ResamplerErrorCode.ALLOC_FAILED

@@ -200,7 +200,7 @@ def test_fixed_direct_output_scale(oracle_fixed, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Batched device engine (exact int8-plane MXU formulation)
+# Batched device engine (exact int8-plane GEMM formulation)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("ir,orr,q", [
@@ -264,36 +264,49 @@ def test_fixed_batched_checkpoint_roundtrip():
         e3.load_state_dict(snap)
 
 
-@pytest.mark.parametrize("ir,orr,q", [
-    (24000, 48000, 5),    # direct: 4 exact int8 passes
-    (44100, 48000, 7),    # interpolated: 16 passes + integer cubic epilogue
-])
-def test_fixed_pallas_tiled_interpret(ir, orr, q):
-    """The v3 kernel's "fixed" scheme (exact int8 planes + int32 bias) must
-    be bit-identical to the host fixed hot loops — in interpret mode here;
-    experiments/fixed_tpu_check.py pins the same equality on the real chip."""
+def _fixed_step_case(ir, orr, q, target, seed, mesh=None):
+    """One launch of the fixed dense step on full-range int16 history and
+    chunk (wrapping sums exercised) vs the exact host fixed loops; with
+    ``mesh`` the step runs lane-sharded and must stay sharded."""
+    import jax
+    import jax.numpy as jnp
     from speex_resampler_tpu.ops import fir_fixed
     from speex_resampler_tpu.parallel.batch import (_launch_geometry,
                                                     make_batched_step)
-    import jax.numpy as jnp
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     spec = _spec(ir, orr, q)
-    bspec = _launch_geometry(spec, 600, use_pallas=True)
-    assert bspec.kernel == "tiled"
-    bstep = make_batched_step(spec, bspec, use_pallas=True,
-                              pallas_interpret=True)
-    assert bstep.scheme == "fixed"
-    B = 8
+    bspec = _launch_geometry(spec, target)
+    assert bspec.kernel == "dense"
+    step = make_batched_step(spec, bspec, mesh=mesh)
+    B = 16
     n_in = bspec.in_per_launch
-    x_np = np.zeros((bstep.chunk_rows, B), dtype=np.int16)
+    x_np = np.zeros((step.chunk_rows, B), dtype=np.int16)
     x_np[:n_in] = rng.integers(-32768, 32768, (n_in, B)).astype(np.int16)
-    h_np = rng.integers(-32768, 32768,
-                        (bstep.hist_rows, B)).astype(np.int16)
-    _, y = bstep.fn(jnp.asarray(h_np), jnp.asarray(x_np), bstep.w)
+    h_np = rng.integers(-32768, 32768, (step.hist_rows, B)).astype(np.int16)
+    h, x, w = jnp.asarray(h_np), jnp.asarray(x_np), step.w
+    if mesh is not None:
+        P = jax.sharding.PartitionSpec
+        lane = jax.sharding.NamedSharding(mesh, P(None, "streams"))
+        h, x = jax.device_put(h, lane), jax.device_put(x, lane)
+        w = jax.device_put(w, jax.sharding.NamedSharding(mesh, P()))
+    _, y = step.fn(h, x, w)
+    if mesh is not None:
+        assert len(y.sharding.device_set) == len(mesh.devices.flat)
     X = np.concatenate([h_np[-(spec.filt_len - 1):], x_np[:n_in]], axis=0).T
     ref = fir_fixed.resample_fixed(X, 0, bspec.f0, bspec.out_per_launch,
                                    spec)
     assert np.array_equal(np.asarray(y).T, ref)
+
+
+@pytest.mark.parametrize("ir,orr,q", [
+    (24000, 48000, 5),    # direct: 4 exact int8 dots
+    (44100, 48000, 7),    # interpolated: 4 accumulators + integer cubic
+])
+def test_fixed_dense_step_matches_host_loops(ir, orr, q):
+    """The dense fixed step (exact int8 planes + int32 bias) is
+    bit-identical to the host fixed hot loops for one launch from a
+    full-range random history."""
+    _fixed_step_case(ir, orr, q, 600, seed=1)
 
 
 def test_fixed_api_wrapper(oracle_fixed, fixture_pcm, tmp_path):
@@ -349,32 +362,11 @@ def test_fixed_cli(oracle_fixed, fixture_pcm, tmp_path):
     assert np.array_equal(got, golden)
 
 
-def test_fixed_pallas_streamed_interpret():
-    """Large-P fixed config (48k->44.1k q10: P = den = 147) takes the v4
-    streamed-weight kernel with the exact fixed scheme — bit-identical to
-    the host fixed hot loops."""
-    from speex_resampler_tpu.ops import fir_fixed
-    from speex_resampler_tpu.parallel.batch import (_launch_geometry,
-                                                    make_batched_step)
-    import jax.numpy as jnp
-    rng = np.random.default_rng(2)
-    spec = _spec(48000, 44100, 10)
-    bspec = _launch_geometry(spec, 400, use_pallas=True)
-    assert bspec.kernel == "streamed"
-    bstep = make_batched_step(spec, bspec, use_pallas=True,
-                              pallas_interpret=True)
-    assert bstep.scheme == "fixed"
-    B = 8
-    n_in = bspec.in_per_launch
-    x_np = np.zeros((bstep.chunk_rows, B), dtype=np.int16)
-    x_np[:n_in] = rng.integers(-32768, 32768, (n_in, B)).astype(np.int16)
-    h_np = rng.integers(-32768, 32768,
-                        (bstep.hist_rows, B)).astype(np.int16)
-    _, y = bstep.fn(jnp.asarray(h_np), jnp.asarray(x_np), bstep.w)
-    X = np.concatenate([h_np[-(spec.filt_len - 1):], x_np[:n_in]], axis=0).T
-    ref = fir_fixed.resample_fixed(X, 0, bspec.f0, bspec.out_per_launch,
-                                   spec)
-    assert np.array_equal(np.asarray(y).T, ref)
+def test_fixed_dense_step_long_cycle():
+    """48k->44.1k q10 (den 147, 256-tap interpolated filter, 4
+    accumulators): the dense fixed step is bit-identical to the host fixed
+    hot loops."""
+    _fixed_step_case(48000, 44100, 10, 400, seed=2)
 
 
 def test_fixed_fleet_and_multifleet():
@@ -413,85 +405,18 @@ def test_fixed_fleet_and_multifleet():
     assert np.array_equal(y, ref[:len(y)])
 
 
-def test_fixed_pallas_mesh_sharded_interpret():
-    """Fixed v3 kernel under shard_map on an 8-device virtual mesh:
-    sharded == unsharded, bit-equal (share-nothing lanes)."""
-    from speex_resampler_tpu.parallel.batch import (_launch_geometry,
-                                                    make_batched_step)
+@pytest.mark.parametrize("ir,orr,q,target", [
+    (44100, 48000, 7, 147),    # flagship, one output period per launch
+    (48000, 44100, 10, 400),   # long weight cycle, 4 accumulators
+])
+def test_fixed_dense_step_mesh_sharded(ir, orr, q, target):
+    """The fixed dense step under shard_map on an 8-device virtual mesh
+    keeps the lane axis sharded and stays bit-identical to the host fixed
+    loops (share-nothing lanes, exact integer sums)."""
     import jax
-    import jax.numpy as jnp
     devs = jax.devices("cpu")[:8]
     mesh = jax.sharding.Mesh(np.array(devs), ("streams",))
-    P = jax.sharding.PartitionSpec
-    lane = jax.sharding.NamedSharding(mesh, P(None, "streams"))
-    repl = jax.sharding.NamedSharding(mesh, P())
-    rng = np.random.default_rng(6)
-    spec = _spec(44100, 48000, 7)
-    bspec = _launch_geometry(spec, 147, use_pallas=True)
-    assert bspec.kernel == "tiled"
-    step = make_batched_step(spec, bspec, use_pallas=True,
-                             pallas_interpret=True, mesh=mesh)
-    B = 16
-    x_np = np.zeros((step.chunk_rows, B), dtype=np.int16)
-    x_np[:bspec.in_per_launch] = rng.integers(
-        -32768, 32768, (bspec.in_per_launch, B)).astype(np.int16)
-    h_np = rng.integers(-32768, 32768,
-                        (step.hist_rows, B)).astype(np.int16)
-    w = jax.device_put(step.w, repl)
-    h2, y = step.fn(jax.device_put(jnp.asarray(h_np), lane),
-                    jax.device_put(jnp.asarray(x_np), lane), w)
-    assert len(y.sharding.device_set) == 8
-
-    ref_step = make_batched_step(spec, bspec, use_pallas=True,
-                                 pallas_interpret=True)
-    _, y_ref = ref_step.fn(jnp.asarray(h_np), jnp.asarray(x_np), ref_step.w)
-    assert np.array_equal(np.asarray(y), np.asarray(y_ref))
-
-
-def test_fixed_pallas_streamed_mesh_sharded_interpret(monkeypatch):
-    """Fixed v4 streamed kernel (4-accumulator interpolated path) under
-    shard_map on an 8-device virtual mesh: sharded == unsharded, bit-equal.
-    Closes the round-2 gap: no test combined kernel=="streamed" with
-    mesh= in the fixed universe.
-
-    The natural fixed streamed config (48k->44.1k q10, P=147) costs ~16
-    min under 8-way interpret emulation (measured), so the flagship
-    (P=20, interpolated => n_accum=4) is FORCED onto v4 by zeroing the
-    fixed tiled-residency threshold — identical kernel + mesh plumbing."""
-    from speex_resampler_tpu.parallel.batch import (_launch_geometry,
-                                                    make_batched_step)
-    import speex_resampler_tpu.parallel.batch as batch_mod
-    monkeypatch.setattr(batch_mod, "_MAX_FIXED_TILED_WEIGHT_BYTES", 0)
-    import jax
-    import jax.numpy as jnp
-    devs = jax.devices("cpu")[:8]
-    mesh = jax.sharding.Mesh(np.array(devs), ("streams",))
-    P = jax.sharding.PartitionSpec
-    lane = jax.sharding.NamedSharding(mesh, P(None, "streams"))
-    repl = jax.sharding.NamedSharding(mesh, P())
-    rng = np.random.default_rng(8)
-    spec = _spec(44100, 48000, 7)
-    assert not spec.use_direct  # 4-accumulator interpolated path
-    bspec = _launch_geometry(spec, 400, use_pallas=True)
-    assert bspec.kernel == "streamed"
-    step = make_batched_step(spec, bspec, use_pallas=True,
-                             pallas_interpret=True, mesh=mesh)
-    assert step.scheme == "fixed"
-    B = 16
-    x_np = np.zeros((step.chunk_rows, B), dtype=np.int16)
-    x_np[:bspec.in_per_launch] = rng.integers(
-        -32768, 32768, (bspec.in_per_launch, B)).astype(np.int16)
-    h_np = rng.integers(-32768, 32768,
-                        (step.hist_rows, B)).astype(np.int16)
-    w = jax.device_put(step.w, repl)
-    _, y = step.fn(jax.device_put(jnp.asarray(h_np), lane),
-                   jax.device_put(jnp.asarray(x_np), lane), w)
-    assert len(y.sharding.device_set) == 8
-
-    ref_step = make_batched_step(spec, bspec, use_pallas=True,
-                                 pallas_interpret=True)
-    _, y_ref = ref_step.fn(jnp.asarray(h_np), jnp.asarray(x_np), ref_step.w)
-    assert np.array_equal(np.asarray(y), np.asarray(y_ref))
+    _fixed_step_case(ir, orr, q, target, seed=6, mesh=mesh)
 
 
 def test_resample_gather_fixed_direct_branch():

@@ -83,10 +83,8 @@ def test_stream_fn_mesh_sharded_matches_unsharded():
         pytest.skip("needs 8 virtual devices")
     mesh = jax.sharding.Mesh(np.array(devs[:8]), ("streams",))
     B = 16  # 2 lanes per device
-    plain = make_stream_fn(44100, 48000, 7, target_in_frames=600,
-                           use_pallas=False)
-    sharded = make_stream_fn(44100, 48000, 7, target_in_frames=600,
-                             use_pallas=False, mesh=mesh)
+    plain = make_stream_fn(44100, 48000, 7, target_in_frames=600)
+    sharded = make_stream_fn(44100, 48000, 7, target_in_frames=600, mesh=mesh)
     assert sharded.in_frames == plain.in_frames
     lane = jax.sharding.NamedSharding(
         mesh, jax.sharding.PartitionSpec(None, "streams"))

@@ -3,10 +3,10 @@
 The batch engine's launch quantum is also its availability latency: a
 stream must stage in_per_launch frames before output appears (the
 streaming role of src/index.ts:121-162).  ``max_latency_ms`` makes the
-budget HARD: geometry falls back from the throughput-optimal tiled kernel
-(min quantum S*gp frames, ~53 ms at the flagship ratio) to a dense
-geometry with a capped group factor (min quantum = num frames, 3.3 ms at
-44.1k->48k) when needed.  Outputs are chunking-invariant, so the
+budget HARD: the quantum, normally rounded to the nearest multiple of
+group*num frames, floors under the cap, and the group factor shrinks
+when even one group stride is too long (min quantum = num frames, 3.3 ms
+at 44.1k->48k).  Outputs are chunking-invariant, so the
 low-latency engine is bit-identical to the default one — only WHEN output
 becomes available changes.
 """
@@ -28,12 +28,12 @@ def _random_frames(S, n, C, seed=0):
 
 def test_voip_preset_quantum_under_budget():
     """The voip preset's engine kwargs produce a <= 20 ms launch quantum
-    for the common rate pairs (the default tiled geometry would round the
-    flagship up to ~53 ms)."""
+    for the common rate pairs (the default 4096-frame target rounds the
+    flagship to 93 ms)."""
     p = get_preset("voip")
     for ir, orr in [(44100, 48000), (48000, 44100), (24000, 48000),
                     (16000, 8000), (8000, 48000)]:
-        eng = BatchedResampler(2, 1, ir, orr, use_pallas=False,
+        eng = BatchedResampler(2, 1, ir, orr,
                                **p.engine_kwargs(ir))
         assert eng.launch_latency_ms <= 20.0 + 1e-9, (
             ir, orr, eng.launch_latency_ms)
@@ -47,9 +47,9 @@ def test_low_latency_output_identical_to_default():
     latency changes."""
     S, C = 2, 2
     frames = _random_frames(S, 12000, C, seed=3)
-    fast = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    fast = BatchedResampler(S, C, 44100, 48000, 7,
                             max_latency_ms=20.0)
-    slow = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False)
+    slow = BatchedResampler(S, C, 44100, 48000, 7)
     assert fast.launch_latency_ms <= 20.0
     assert slow.launch_latency_ms > 20.0  # the default rounds up
     a = np.concatenate([fast.process(frames), fast.flush()], axis=1)
@@ -61,7 +61,7 @@ def test_low_latency_availability():
     """Feeding exactly one 20 ms quantum must produce output immediately
     (the default engine would still be staging)."""
     S, C = 1, 1
-    fast = BatchedResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    fast = BatchedResampler(S, C, 44100, 48000, 7,
                             max_latency_ms=20.0)
     q = fast.in_frames_per_launch
     assert q <= 882  # 20 ms at 44.1k
@@ -69,13 +69,12 @@ def test_low_latency_availability():
     assert y.shape[1] == fast.out_frames_per_launch > 0
 
 
-def test_loose_budget_keeps_pallas_kernel():
-    """A budget looser than the tiled kernel's natural quantum must keep
-    the throughput-optimal kernel (floor-quantized under the cap), not
-    fall to dense."""
-    eng = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=True,
-                           pallas_interpret=True, max_latency_ms=100.0)
-    assert eng.bspec.kernel == "tiled"
+def test_loose_budget_keeps_uncapped_geometry():
+    """A budget looser than the natural quantum (4116 frames = 93 ms at
+    the default target) keeps the uncapped geometry exactly."""
+    plain = BatchedResampler(2, 1, 44100, 48000, 7)
+    eng = BatchedResampler(2, 1, 44100, 48000, 7, max_latency_ms=100.0)
+    assert eng.bspec == plain.bspec
     assert eng.launch_latency_ms <= 100.0
 
 
@@ -85,7 +84,7 @@ def test_infeasible_budget_raises():
     the engine must refuse rather than silently violate the budget (the
     single-stream ResamplerCore covers true sample-level latency)."""
     with pytest.raises(ResamplerError):
-        BatchedResampler(2, 1, 44100, 44101, 1, use_pallas=False,
+        BatchedResampler(2, 1, 44100, 44101, 1,
                          max_latency_ms=20.0)
 
 
@@ -93,7 +92,7 @@ def test_fleet_low_latency():
     """FleetResampler honors the hard budget: a stream that stages 20 ms
     of audio gets output on the next poll."""
     S, C = 3, 2
-    fleet = FleetResampler(S, C, 44100, 48000, 7, use_pallas=False,
+    fleet = FleetResampler(S, C, 44100, 48000, 7,
                            max_latency_ms=20.0)
     assert fleet.launch_latency_ms <= 20.0
     q = fleet.bspec.in_per_launch
@@ -108,7 +107,7 @@ def test_fleet_low_latency():
 def test_multifleet_low_latency():
     """MultiFleet forwards the hard budget to every bucket's fleet."""
     from speex_resampler_tpu.runtime.multifleet import MultiFleet
-    mf = MultiFleet(1, capacity_per_bucket=4, use_pallas=False,
+    mf = MultiFleet(1, capacity_per_bucket=4,
                     max_latency_ms=20.0)
     mf.add_stream("a", 44100, 48000, 7)
     mf.add_stream("b", 24000, 48000, 5)
@@ -119,52 +118,51 @@ def test_multifleet_low_latency():
 def test_permissive_budget_never_inflates_quantum():
     """A cap looser than the chosen geometry must be a no-op: same
     quantum as the uncapped engine (a cap may only ever shrink)."""
-    plain = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=False,
+    plain = BatchedResampler(2, 1, 44100, 48000, 7,
                              target_chunk_frames=882)
-    capped = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=False,
+    capped = BatchedResampler(2, 1, 44100, 48000, 7,
                               target_chunk_frames=882,
                               max_latency_ms=1000.0)
     assert capped.in_frames_per_launch == plain.in_frames_per_launch
 
 
-def test_budget_holds_when_pallas_sizes_reject(monkeypatch):
-    """The cap must hold even when the Pallas size gates reject every
-    kernel downstream of the pre-check (the former fall-through reached
-    an UNCAPPED dense geometry)."""
-    import speex_resampler_tpu.parallel.batch as bm
-    monkeypatch.setattr(bm, "_MAX_TILED_WEIGHT_BYTES", 0)
-    monkeypatch.setattr(bm, "_MAX_STREAMED_WEIGHT_BYTES", 0)
-    eng = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=True,
-                           pallas_interpret=True, max_latency_ms=20.0)
+def test_budget_holds_when_rounding_overflows():
+    """A cap of 960 frames rounds to 7 flagship periods (1029 frames) —
+    over the cap — so the quantum must floor to 6 periods instead."""
+    eng = BatchedResampler(2, 1, 44100, 48000, 7, target_chunk_frames=9408,
+                           max_latency_ms=960 / 44.1)
     assert eng.bspec.kernel == "dense"
-    assert eng.launch_latency_ms <= 20.0
+    assert eng.in_frames_per_launch == 6 * 147
+    assert eng.launch_latency_ms <= 960 / 44.1
 
 
-def test_quantized_budget_keeps_family_and_cap():
-    """A cap between one and two tiled periods floor-quantizes within the
-    tiled family instead of falling to dense."""
-    eng = BatchedResampler(2, 1, 44100, 48000, 7, use_pallas=True,
-                           pallas_interpret=True,
-                           target_chunk_frames=9408, max_latency_ms=80.0)
-    assert eng.bspec.kernel == "tiled"
-    assert eng.launch_latency_ms <= 80.0
+def test_budget_below_one_group_shrinks_group():
+    """24k->48k (num 1, den 2) batches 64 periods per GEMM row; a 1 ms cap
+    (24 frames) is shorter than that stride, so the group factor shrinks
+    to fit, and the output is unchanged."""
+    plain = BatchedResampler(2, 1, 24000, 48000, 5)
+    eng = BatchedResampler(2, 1, 24000, 48000, 5, max_latency_ms=1.0)
+    assert eng.bspec.kernel == "dense"
+    assert eng.bspec.group < plain.bspec.group
+    assert eng.in_frames_per_launch <= 24
+    frames = _random_frames(2, 3000, 1, seed=12)
+    a = np.concatenate([eng.process(frames), eng.flush()], axis=1)
+    b = np.concatenate([plain.process(frames), plain.flush()], axis=1)
+    from conftest import assert_lsb_close
+    assert_lsb_close(a.ravel(), b.ravel())
 
 
 def test_latency_cap_huge_den_dense_fallback_routes_to_gather():
-    """A spec whose uncapped geometry is streamed (per-phase weights fit)
-    but whose quantum unit S exceeds the cap must NOT fall through to a
-    dense geometry whose padded L x group*den matrix busts
-    MAX_PADDED_WEIGHT_BYTES (hundreds of MB for huge den) — the capped
-    path re-applies the cap at the capped group and routes to the
-    weight-free gather geometry, like the uncapped path would."""
+    """A huge-den spec whose padded L x group*den matrix would bust
+    MAX_PADDED_WEIGHT_BYTES must stay on the weight-free gather geometry
+    under a cap, floor-quantized to whole num-periods within it."""
     from speex_resampler_tpu.ops import filter_design as fd
     from speex_resampler_tpu.parallel.batch import _launch_geometry
 
     spec = fd.design_filter(513, 16384, 0)
-    un = _launch_geometry(spec, 4096, use_pallas=True)
-    assert un.kernel in ("tiled", "streamed")
-    capped = _launch_geometry(spec, 4096, use_pallas=True,
-                              max_in_frames=1000)
+    un = _launch_geometry(spec, 4096)
+    assert un.kernel == "gather"
+    capped = _launch_geometry(spec, 4096, max_in_frames=1000)
     assert capped.kernel == "gather", capped.kernel
     assert capped.n_blocks * spec.num <= 1000
 
@@ -189,7 +187,7 @@ def test_fuzz_latency_caps_random_configs():
         cap_ms = float(rng.choice([5.0, 20.0, 60.0, 250.0]))
         num = ir // math.gcd(ir, orr)
         try:
-            capped = BatchedResampler(2, 1, ir, orr, q, use_pallas=False,
+            capped = BatchedResampler(2, 1, ir, orr, q,
                                       max_latency_ms=cap_ms)
         except ResamplerError:
             # legal only when one num-period exceeds the cap
@@ -198,7 +196,7 @@ def test_fuzz_latency_caps_random_configs():
         assert capped.launch_latency_ms <= cap_ms + 1e-9, (
             ir, orr, q, cap_ms, capped.launch_latency_ms)
         assert capped.in_frames_per_launch % num == 0
-        plain = BatchedResampler(2, 1, ir, orr, q, use_pallas=False)
+        plain = BatchedResampler(2, 1, ir, orr, q)
         frames = _random_frames(2, 9000, 1, seed=checked)
         a = np.concatenate([capped.process(frames), capped.flush()], axis=1)
         b = np.concatenate([plain.process(frames), plain.flush()], axis=1)

@@ -19,7 +19,7 @@ def _ref(frames, in_rate, out_rate, q, skip_tail=False):
 def test_multifleet_heterogeneous_streams():
     rng = np.random.default_rng(0)
     mf = MultiFleet(channels=2, capacity_per_bucket=4,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     cfgs = {"a": (44100, 48000, 7), "b": (24000, 48000, 5),
             "c": (44100, 24000, 5), "d": (44100, 48000, 7)}
     data = {}
@@ -44,7 +44,7 @@ def test_multifleet_heterogeneous_streams():
 def test_multifleet_dynamic_attach_detach():
     rng = np.random.default_rng(1)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False)
+                    target_chunk_frames=256)
     x1 = (rng.integers(-20000, 20000, size=(3000, 1))).astype(np.int16)
     x2 = (rng.integers(-20000, 20000, size=(3000, 1))).astype(np.int16)
 
@@ -80,7 +80,7 @@ def test_multifleet_exact_output_budget():
     """Zero-padding a drain must not leak extra output frames."""
     rng = np.random.default_rng(2)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=1000, use_pallas=False)
+                    target_chunk_frames=1000)
     n = 1234  # far from the launch quantum
     x = (rng.integers(-20000, 20000, size=(n, 1))).astype(np.int16)
     mf.add_stream("s", 44100, 48000, 7)
@@ -102,7 +102,7 @@ def test_multifleet_set_stream_rate():
     driven through the same set_rate/set_quality switch."""
     rng = np.random.default_rng(3)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     xa = (rng.integers(-20000, 20000, size=(2500, 1))).astype(np.int16)
     xb = (rng.integers(-20000, 20000, size=(2500, 1))).astype(np.int16)
     mf.add_stream("s", 24000, 48000, 5)
@@ -146,7 +146,7 @@ def test_multifleet_set_stream_rate_oracle(oracle, tmp_path):
     want = np.concatenate(want)
 
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("s", 24000, 48000, 5)
     frames = pcm.reshape(-1, 1)
     for i in range(0, n, chunk):
@@ -164,7 +164,7 @@ def test_multifleet_set_stream_rate_oracle(oracle, tmp_path):
 def test_multifleet_remove_stream_drops_staged():
     rng = np.random.default_rng(4)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False)
+                    target_chunk_frames=256)
     x = (rng.integers(-20000, 20000, size=(1000, 1))).astype(np.int16)
     mf.add_stream("s", 24000, 48000, 5)
     mf.add_stream("t", 24000, 48000, 5)
@@ -191,7 +191,7 @@ def test_multifleet_switch_to_overflowing_config_is_transactional():
     x1 = (rng.integers(-20000, 20000, size=(2000, 1))).astype(np.int16)
     x2 = (rng.integers(-20000, 20000, size=(2000, 1))).astype(np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("s", 24000, 48000, 5)
     mf.push("s", x1)
     mf.poll()
@@ -219,7 +219,7 @@ def test_multifleet_end_stream_during_live_transition_collects_tail():
     x1 = (rng.integers(-20000, 20000, size=(1999, 1))).astype(np.int16)
     x2 = (rng.integers(-20000, 20000, size=(3, 1))).astype(np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("s", 44100, 48000, 7)
     mf.push("s", x1)                  # drain leaves a nonzero frac, so the
     mf.set_stream_rate("s", 48000, 44100, 5)   # switch transition is live
@@ -253,7 +253,7 @@ def test_multifleet_switch_before_any_data_is_unstarted(fixed):
     data = (rng.integers(-32768, 32768, size=(1761, 1)) // 2).astype(
         np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=300, use_pallas=False,
+                    target_chunk_frames=300,
                     fixed_point=fixed)
     mf.add_stream("s", 44100, 48000, 7)
     mf.set_stream_rate("s", 24000, 48000, 5)   # before ANY push
@@ -301,7 +301,7 @@ def _run_churn(fixed, seed, watermarks):
     wm = dict(max_staged_frames=1200, max_banked_frames=900) \
         if watermarks else {}
     mf = MultiFleet(channels=1, capacity_per_bucket=3,
-                    target_chunk_frames=300, use_pallas=False,
+                    target_chunk_frames=300,
                     fixed_point=fixed, **wm)
     configs = [(24000, 48000, 5), (44100, 48000, 7), (48000, 24000, 4)]
     refusals = 0
@@ -354,7 +354,7 @@ def _run_churn(fixed, seed, watermarks):
             import pickle
             snap = pickle.loads(pickle.dumps(mf.state_dict()))
             mf2 = MultiFleet(channels=1, capacity_per_bucket=3,
-                             target_chunk_frames=300, use_pallas=False,
+                             target_chunk_frames=300,
                              fixed_point=fixed, **wm)
             mf2.load_state_dict(snap)
             mf = mf2
@@ -465,23 +465,29 @@ def _run_churn(fixed, seed, watermarks):
         assert refusals > 0, "watermarks were never hit"
 
 
-def test_multifleet_end_stream_tiled_history(monkeypatch):
-    """end_stream's core hand-off must use exactly filt_len-1 history rows
-    even under the tiled kernel geometry, whose device history is padded to
-    a 16-row multiple (regression: pallas-mode fleets crashed on drain)."""
+@pytest.mark.parametrize("fixed", [False, True])
+def test_multifleet_end_stream_history_handoff(fixed):
+    """end_stream's core hand-off after a real launch: the lane's filter
+    history (exactly filt_len-1 rows) seeds a single-stream core that
+    drains the staged tail; the whole stream equals one core's run (and
+    is bit-exact in the fixed universe)."""
     rng = np.random.default_rng(7)
     x = (rng.integers(-20000, 20000, size=(2500, 1))).astype(np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=True,
-                    pallas_interpret=True)
+                    target_chunk_frames=512, fixed_point=fixed)
     mf.add_stream("s", 44100, 48000, 7)
     mf.push("s", x)
-    mf.poll()
+    assert mf.poll() > 0
     mf.end_stream("s")
     got = mf.pull("s")
-    ref = _ref(x, 44100, 48000, 7)
+    core = ResamplerCore(1, 44100, 48000, 44100, 48000, 7,
+                         fixed_point=fixed)
+    ref = core.process_interleaved(x, 10**9)
     assert got.shape == ref.shape
-    assert_lsb_close(got.ravel(), ref.ravel())
+    if fixed:
+        assert np.array_equal(got, ref)
+    else:
+        assert_lsb_close(got.ravel(), ref.ravel())
 
 
 def test_multifleet_set_stream_rate_full_target_bucket():
@@ -489,7 +495,7 @@ def test_multifleet_set_stream_rate_full_target_bucket():
     stream intact (previously the sid was popped before ALLOC_FAILED,
     losing the drained carryover)."""
     mf = MultiFleet(channels=1, capacity_per_bucket=1,
-                    target_chunk_frames=64, use_pallas=False)
+                    target_chunk_frames=64)
     mf.add_stream("a", 24000, 48000, 5)
     mf.add_stream("b", 44100, 48000, 7)   # fills the 44.1k bucket
     rng = np.random.default_rng(5)
@@ -520,7 +526,7 @@ def test_multifleet_transition_pull_is_clean():
     (round-2 review finding: stale-history convolution garbage)."""
     rng = np.random.default_rng(11)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("a", 44100, 48000, 7)
     mf.add_stream("b", 24000, 48000, 5)
     x = (rng.integers(-20000, 20000, size=(3000, 1))).astype(np.int16)
@@ -550,7 +556,7 @@ def test_multifleet_set_stream_rate_preserves_byte_carry():
     rng = np.random.default_rng(12)
     pcm = (rng.integers(-20000, 20000, size=4000)).astype("<i2").tobytes()
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("s", 24000, 48000, 5)
     mf.push_bytes("s", pcm[:101])              # 1 carry byte pending
     mf.set_stream_rate("s", 44100, 48000, 7)
@@ -599,7 +605,7 @@ def test_multifleet_set_stream_rate_fixed_oracle(oracle_fixed, tmp_path):
     want = np.concatenate(want)
 
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False,
+                    target_chunk_frames=512,
                     fixed_point=True)
     mf.add_stream("s", 24000, 48000, 5)
     frames = pcm.reshape(-1, 1)
@@ -621,7 +627,7 @@ def test_multifleet_end_stream_then_pull_returns_tail_or_empty():
     then is the record collected); a second end_stream is a no-op.
     Regression: _gc ran inside end_stream, so pull raised INVALID_ARG."""
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("a", 44100, 48000, 7)
     mf.end_stream("a")            # nothing ever pushed
     mf.end_stream("a")            # repeat is a no-op, not an error
@@ -662,7 +668,7 @@ def test_multifleet_rejected_switch_keeps_stream_serviceable():
     x1 = (rng.integers(-20000, 20000, size=(n, 1))).astype(np.int16)
     x2 = (rng.integers(-20000, 20000, size=(2000, 1))).astype(np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("s", *old, 4)
     mf.push("s", x1)
     with pytest.raises(ResamplerError):
@@ -697,7 +703,7 @@ def test_multifleet_switch_magic_covers_windows():
     rng = np.random.default_rng(21)
     x = rng.integers(-20000, 20000, size=(300, 1)).astype(np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     mf.add_stream("s", 44100, 48000, 10)
     mf.push("s", x)
     mf.set_stream_rate("s", 44100, 48000, 0)  # q10 filt_len -> big magic
@@ -741,7 +747,7 @@ def test_multifleet_chained_rate_switch_mid_transition():
     config and must be processed under it before the chained set_rate."""
     rng = np.random.default_rng(13)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=512, use_pallas=False)
+                    target_chunk_frames=512)
     xa = rng.integers(-20000, 20000, size=(100, 1)).astype(np.int16)
     xb = rng.integers(-20000, 20000, size=(3, 1)).astype(np.int16)
     xc = rng.integers(-20000, 20000, size=(2000, 1)).astype(np.int16)
@@ -781,7 +787,7 @@ def test_multifleet_push_free_chained_rate_switch(fixed):
     xa = (rng.integers(-32768, 32768, size=(500, 1)) // 2).astype(np.int16)
     xc = (rng.integers(-32768, 32768, size=(2000, 1)) // 2).astype(np.int16)
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     fixed_point=fixed)
     mf.add_stream("s", 44100, 48000, 7)
     mf.push("s", xa)
@@ -819,7 +825,7 @@ def test_idle_bucket_lru_eviction_and_rebuild():
     is released, and a config that returns later transparently rebuilds
     its bucket and serves correctly."""
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_idle_buckets=2)
     rng = np.random.default_rng(7)
     x = (rng.integers(-32768, 32768, size=(900, 1)) // 2).astype(np.int16)
@@ -849,7 +855,7 @@ def test_idle_bucket_default_bound_and_opt_out():
     bucket (pre-knob behavior)."""
     assert MultiFleet(channels=1).max_idle_buckets is not None
     mf = MultiFleet(channels=1, capacity_per_bucket=1,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_idle_buckets=None)
     for i, orr in enumerate((48000, 24000, 32000)):
         sid = f"k{i}"
@@ -863,7 +869,7 @@ def test_occupied_bucket_never_evicted():
     """Only fully-unoccupied buckets are eviction candidates; live
     streams pin their bucket regardless of churn around them."""
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_idle_buckets=1)
     rng = np.random.default_rng(9)
     x = (rng.integers(-32768, 32768, size=(700, 1)) // 2).astype(np.int16)
@@ -893,7 +899,7 @@ def test_same_key_rate_switch_with_zero_idle_cap():
     round-4 medium finding).  The switch must succeed and the stream
     stay exactly serviceable."""
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_idle_buckets=0)
     rng = np.random.default_rng(21)
     x = (rng.integers(-32768, 32768, size=(700, 1)) // 2).astype(np.int16)
@@ -922,7 +928,7 @@ def test_stale_idle_entry_never_evicts_occupied_bucket():
     could delete the OCCUPIED bucket.  The sweep must drop stale entries
     instead of live buckets."""
     mf = MultiFleet(channels=1, capacity_per_bucket=2,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_idle_buckets=1)
     rng = np.random.default_rng(22)
     x = (rng.integers(-32768, 32768, size=(400, 1)) // 2).astype(np.int16)
@@ -949,7 +955,7 @@ def test_restore_replays_idle_lru_order():
     (advisor round-4 low finding: state-dict iteration order could evict
     a recently used config)."""
     mf = MultiFleet(channels=1, capacity_per_bucket=1,
-                    target_chunk_frames=256, use_pallas=False,
+                    target_chunk_frames=256,
                     max_idle_buckets=3)
     # idle three configs in a known order, then touch the FIRST one so
     # its recency moves to newest: LRU order = [B, C, A]
@@ -965,7 +971,7 @@ def test_restore_replays_idle_lru_order():
 
     import pickle
     clone = MultiFleet(channels=1, capacity_per_bucket=1,
-                       target_chunk_frames=256, use_pallas=False,
+                       target_chunk_frames=256,
                        max_idle_buckets=3)
     clone.load_state_dict(pickle.loads(pickle.dumps(mf.state_dict())))
     assert list(clone._idle) == [keys[1], keys[2], keys[0]]

@@ -166,7 +166,7 @@ def test_engine_routing():
     with pytest.raises(ResamplerError):
         ResamplerCore(1, 1, 1, 44100, 48000, 5, exact=True, engine="device")
     with pytest.raises(ResamplerError):
-        ResamplerCore(1, 1, 1, 44100, 48000, 5, engine="mxu")
+        ResamplerCore(1, 1, 1, 44100, 48000, 5, engine="bogus")
 
     rng = np.random.default_rng(9)
     x = rng.integers(-32768, 32768, (2048, 2)).astype(np.int16)

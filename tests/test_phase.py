@@ -1,8 +1,8 @@
-"""Property tests for the closed-form phase math and tiled weight builder.
+"""Property tests for the closed-form phase math and padded weight builder.
 
 The closed form must agree with the reference's sequential recurrence
-(resample.c:372-378) for arbitrary ratios, and the phase-tiled weight set
-must satisfy the alignment/periodicity invariants the v3 kernel assumes.
+(resample.c:372-378) for arbitrary ratios, and the padded weight matrix
+must place every output's taps where the dense step's patches read them.
 """
 
 import math
@@ -59,42 +59,36 @@ def test_closed_form_matches_recurrence(num, den):
     (147, 160, 7), (1, 2, 5), (147, 80, 5), (1, 1, 10), (3, 4, 0),
     (441, 480, 3), (2, 3, 8),
 ])
-def test_phase_tiled_weight_invariants(num, den, quality):
+def test_padded_weight_invariants(num, den, quality):
+    """build_padded_weights: column r of a super-block holds output r's
+    taps at rows [o[r], o[r] + filt_len) and zeros elsewhere, for every
+    group factor the engine may pick and a nonzero start phase."""
+    from speex_resampler_tpu.ops import fir_matmul as fm
     spec = fd.design_filter(num, den, quality)
-    for shift in (0, 16 - ((spec.filt_len - 1) % 16) if
-                  (spec.filt_len - 1) % 16 else 0):
-        ptw = ph.build_phase_tiled_weights(spec.phase_table, num, den, 0,
-                                           origin_shift=shift)
-        # alignment invariants the v3 kernel relies on
-        assert ptw.S % 16 == 0
-        assert all(int(o) % 16 == 0 for o in ptw.offsets)
-        assert ptw.K % 8 == 0
-        # P*R outputs consume exactly S inputs and return to phase 0
-        assert (ptw.P * ptw.R * num) % den == 0
-        assert ptw.P * ptw.R * num // den == ptw.S
-        # every output j reconstructs its exact taps from w
-        R, K = ptw.R, ptw.K
-        for j in (0, 1, R - 1, R, ptw.P * R - 1):
-            k, r = divmod(j, R)
-            t = j * num
-            start, p = t // den + shift, t % den
-            col = ptw.w[k % ptw.P, :, r]
-            lo = start - int(ptw.offsets[k % ptw.P]) - (k // ptw.P) * ptw.S
-            # row placement: taps occupy [lo, lo+filt_len) of the column
-            assert lo >= 0 and lo + spec.filt_len <= K
-            assert np.array_equal(col[lo:lo + spec.filt_len],
-                                  spec.phase_table[p])
-            assert not col[:lo].any()
-            assert not col[lo + spec.filt_len:].any()
+    N = spec.filt_len
+    for group in sorted({1, fm.choose_group(num, den, N)}):
+        for f0 in (0, den // 3):
+            W = ph.build_padded_weights(spec.phase_table, num, den, f0,
+                                        group)
+            assert W.shape == (N + group * num, group * den)
+            for r in range(group * den):
+                t = f0 + r * num
+                o, p = t // den - f0 // den, t % den
+                col = W[:, r]
+                assert np.array_equal(col[o:o + N], spec.phase_table[p])
+                assert not col[:o].any() and not col[o + N:].any()
 
 
-def test_tiled_weights_periodicity():
-    spec = fd.design_filter(147, 160, 7)
-    ptw = ph.build_phase_tiled_weights(spec.phase_table, 147, 160, 0)
-    # block k+P uses the same weights at offset +S
-    num, den, R = 147, 160, ptw.R
-    for k in (0, 3, ptw.P - 1):
-        t0 = (k * R) * num
-        t1 = ((k + ptw.P) * R) * num
-        assert t1 // den - t0 // den == ptw.S
+def test_padded_weights_block_periodicity():
+    """A super-block of group*den outputs consumes exactly group*num
+    inputs and returns to its start phase, so one weight matrix serves
+    every block of every launch."""
+    from speex_resampler_tpu.ops import fir_matmul as fm
+    num, den = 147, 160
+    spec = fd.design_filter(num, den, 7)
+    group = fm.choose_group(num, den, spec.filt_len)
+    R, stride = group * den, group * num
+    for k in (0, 3, 17):
+        t0, t1 = (k * R) * num, ((k + 1) * R) * num
+        assert t1 // den - t0 // den == stride
         assert t0 % den == t1 % den

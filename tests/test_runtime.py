@@ -130,7 +130,7 @@ def test_fleet_matches_single_stream_core():
     frames = (rng.integers(-32768, 32768, size=(S, n, C)) // 2).astype(
         np.int16)
     fleet = FleetResampler(S, C, 44100, 48000, 7,
-                           target_chunk_frames=1024, use_pallas=False)
+                           target_chunk_frames=1024)
     # ragged pushes at per-stream cadence
     pos = [0] * S
     while min(pos) < n:
@@ -162,7 +162,7 @@ def test_fleet_flush_drains_multiple_quanta():
     rng = np.random.default_rng(11)
     S, C = 2, 1
     fleet = FleetResampler(S, C, 44100, 48000, 7,
-                           target_chunk_frames=512, use_pallas=False)
+                           target_chunk_frames=512)
     q = fleet.bspec.in_per_launch
     n0, n1 = int(2.5 * q), q // 3
     frames0 = (rng.integers(-32768, 32768, size=(n0, C)) // 2).astype(
@@ -197,7 +197,7 @@ def test_fleet_push_bytes_roundtrip():
     frames = (rng.integers(-32768, 32768, size=(S, n, C)) // 2).astype(
         np.int16)
     fleet = FleetResampler(S, C, 24000, 48000, 5,
-                           target_chunk_frames=512, use_pallas=False)
+                           target_chunk_frames=512)
     for s in range(S):
         raw = frames[s].astype("<i2").tobytes()
         cuts = sorted(rng.integers(1, len(raw), size=5))
@@ -259,10 +259,8 @@ def test_fleet_poll_max_launches():
     rest staged; the banked output is identical to one unbounded poll."""
     rng = np.random.default_rng(31)
     S, C = 4, 1
-    a = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=300,
-                       use_pallas=False)
-    b = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=300,
-                       use_pallas=False)
+    a = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=300)
+    b = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=300)
     q = a.bspec.in_per_launch
     frames = (rng.integers(-20000, 20000, size=(S, 3 * q, C))
               ).astype(np.int16)
@@ -286,7 +284,7 @@ def test_fleet_pipeline_depth_output_invariant():
     rng = np.random.default_rng(41)
     S, C = 4, 2
     fleets = [FleetResampler(S, C, 44100, 48000, 7,
-                             target_chunk_frames=1024, use_pallas=False,
+                             target_chunk_frames=1024,
                              pipeline_depth=d) for d in (1, 2, 4)]
     q = fleets[0].bspec.in_per_launch
     frames = (rng.integers(-32768, 32768, size=(S, 5 * q + 321, C))
@@ -307,8 +305,7 @@ def test_fleet_phase_stats_attribution():
     the per-launch view divides by the launch count."""
     rng = np.random.default_rng(43)
     S, C = 2, 1
-    fleet = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=300,
-                           use_pallas=False)
+    fleet = FleetResampler(S, C, 24000, 48000, 5, target_chunk_frames=300)
     q = fleet.bspec.in_per_launch
     for s in range(S):
         fleet.push(s, (rng.integers(-20000, 20000, size=(2 * q, C))
@@ -366,8 +363,8 @@ def test_stager_carry_size_matches_carry():
 def test_device_consumer_fleet():
     """device_consumer: the launch output is consumed ON DEVICE (fused
     into the jitted step) and readback transfers only the consumer's
-    result — the tunnel-free serving topology BENCH fleet_e2e measures as
-    ``colocated_proxy``.  The checksum must equal the banked-path sum,
+    result (an on-device downstream consumer of the resampled audio).
+    The checksum must equal the banked-path sum,
     pull() must yield nothing, and flush() must keep consuming."""
     import jax.numpy as jnp
     from speex_resampler_tpu.runtime.fleet import FleetResampler

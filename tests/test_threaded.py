@@ -1,9 +1,9 @@
 """Concurrency of the SHARED host-side caches.
 
-design_filter is lru_cache'd, so FilterSpec instances — their lazily-built
-phase tables and the phase-tiled weight cache batch.py attaches — are
-shared across engines.  The reference's share-nothing contract is "a new
-resampler for every audio stream" (Readme.md:20-21); serving that from a
+design_filter is lru_cache'd, so FilterSpec instances — and their
+lazily-built phase tables — are shared across engines.  The reference's
+share-nothing contract is "a new resampler for every audio stream"
+(Readme.md:20-21); serving that from a
 threaded host (MultiFleet buckets built on demand from request threads)
 makes concurrent engine CONSTRUCTION for the same config the load-bearing
 case.  These tests race exactly that; the contract is
@@ -46,8 +46,7 @@ def test_concurrent_engine_construction_same_config(rep):
 
     def build_and_run(i):
         ir, orr, q = CONFIGS[i % len(CONFIGS)]
-        eng = BatchedResampler(S, C, ir, orr, q, target_chunk_frames=256,
-                               use_pallas=False)
+        eng = BatchedResampler(S, C, ir, orr, q, target_chunk_frames=256)
         y = eng.process(x)
         return (ir, orr, q), y
 
@@ -60,33 +59,34 @@ def test_concurrent_engine_construction_same_config(rep):
     golden = {}
     for key, y in results:
         if key not in golden:
-            eng = BatchedResampler(S, C, *key, target_chunk_frames=256,
-                                   use_pallas=False)
+            eng = BatchedResampler(S, C, *key, target_chunk_frames=256)
             golden[key] = eng.process(x)
         np.testing.assert_array_equal(y, golden[key])
 
 
 @pytest.mark.parametrize("rep", range(2))
-def test_concurrent_tiled_weight_cache(rep):
-    """Race the spec-attached _ptw_cache build + eviction: threads request
-    tiled weights for the same spec at different f0s (eviction bound is 4,
-    so 6 phases force concurrent evict/rebuild)."""
+def test_concurrent_lazy_table_builds(rep):
+    """Race the spec's lazy table builds: threads request the float phase
+    table and the fixed interpolation tensors of the SAME cold specs at
+    once; every thread must see the tables a single-threaded build
+    makes (a torn double-checked build shows up as a mismatch)."""
     _fresh_specs()
-    from speex_resampler_tpu.parallel.batch import _tiled_weights
-    spec = fd.design_filter(147, 160, 7)
-    f0s = [(i * spec.num) % spec.den for i in range(6)]
 
     def grab(i):
-        ptw = _tiled_weights(spec, f0s[i % len(f0s)])
-        return (i % len(f0s), np.asarray(ptw.w).copy())
+        fixed = bool(i % 2)
+        spec = fd.design_filter(147, 160, 7, fixed_point=fixed)
+        t = spec.interp_taps if fixed else spec.phase_table
+        return fixed, np.asarray(t).copy()
 
     with cf.ThreadPoolExecutor(8) as ex:
         got = list(ex.map(grab, range(24)))
 
     _fresh_specs()
-    spec2 = fd.design_filter(147, 160, 7)
-    for i, w in got:
-        np.testing.assert_array_equal(w, _tiled_weights(spec2, f0s[i]).w)
+    want = {False: fd.design_filter(147, 160, 7).phase_table,
+            True: fd.design_filter(147, 160, 7, fixed_point=True
+                                   ).interp_taps}
+    for fixed, t in got:
+        np.testing.assert_array_equal(t, want[fixed])
 
 
 def test_multifleet_threaded_serving():
@@ -106,7 +106,7 @@ def test_multifleet_threaded_serving():
 
     def serve(i):
         mf = MultiFleet(channels=C, capacity_per_bucket=4,
-                        target_chunk_frames=256, use_pallas=False)
+                        target_chunk_frames=256)
         outs = {}
         for j, (ir, orr, q) in enumerate(CONFIGS):
             sid = f"s{i}-{j}"
